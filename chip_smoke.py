@@ -10,24 +10,37 @@ the north-star shape, synthetic config 3 (2,500 on-demand + 2,500 spot
 nodes, 50,000 pods, packed to C=2560 K=32 S=2560 R=4), frozen with the
 JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
 
-1. the card (name, power limit) and the kernel build, timed;
+1. the card (name, power limit) and the kernel build, timed (one
+   ``nvcc`` per source, all started together);
 2. kernels B1, B2 and B3 against their plain PyTorch versions on the
    card, on the config-3 pack and on seeded random packs: feasible
    vectors and assignments must be bit-identical; each kernel timed
-   (median over 20 launches after warm-up, CUDA events);
+   (median over 20 launches after warm-up, CUDA events); B3 at the
+   spot chunks of the streamed union's four-chunk first-fit;
 3. the planning tick against the frozen answers: the drain schedule
    (horizon 32), the staged selection, a second tick through the
    resident delta cache after committing the schedule's first drain
    (equal to a fresh full upload and to the schedule's second step),
    the unstaged selection, and config 4 likewise; the launch counts of
-   the main path (reset just before, read just after) must show every
-   kernel of the path ran. B3's path is the same tick with the
-   first-fit pass forced through spot chunks of 512;
+   the main path (reset just before, read just after) must show B1 and
+   B2 ran;
 4. the contended problem (512 anti-affinity quality pools, frozen with
    the JAX package's answers): greedy leaves most valid lanes unproven,
    so repair runs on the card; the union's and repair's feasible
    vectors and assignments, the schedule and both selections must equal
-   the JAX package's, and the contended tick is timed.
+   the JAX package's, and the contended tick is timed;
+5. the carry-streamed narrow union (``union_program(8, carry_chunks=n,
+   carry_layout=carry_layout(pack))`` with the kernels on: first-fit
+   B3 over n spot chunks, best-fit B4 over the narrow delta carry,
+   spot-chunked repair): B4 against its plain version and B2 on seeded
+   random packs covering every carry dtype and the device-memory
+   workspace, bit-identical; then for n in (2, 4) on configs 3, 4 and
+   contended, the fused and staged selections and the 32-step schedule
+   equal the frozen JAX answers, and on contended the union's and
+   ``plan_repair_chunked``'s lanes equal the JAX package's streamed
+   answers; the launch counts of this path must show B3 and B4 ran.
+   B4 is timed at config 3 beside its plain version and bound, with the
+   union's passes and the streamed tick and schedule.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -39,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,7 +60,7 @@ import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM
-SPOT_CHUNK = 512  # B3's forced chunk
+STREAM_CHUNKS = (2, 4)  # carry chunks of the streamed union's path
 
 
 class SmokeFailure(RuntimeError):
@@ -113,6 +127,35 @@ def random_packed(np, rng, C, K, S, R, W=1, A=2):
         spot_ok=rng.random((S,)) < 0.9,
         spot_aff=bits((S, A), 0.3),
     )
+
+
+def layout_packed(np, rng, layout, C, K, S, R):
+    """A seeded random host pack whose ``carry_layout`` is exactly
+    ``layout``: lane 0's first slot requests 100, 40,000 (past int16) or
+    70,000 (past uint16) on a spot that holds it, the other requests
+    keep a lane's sum inside int16, and the affinity bits reach bit 7, 15
+    or 31; an int16 count needs K >= 128."""
+    from k8s_spot_rescheduler_tpu_torch.solver.carry import carry_layout
+
+    host = random_packed(np, rng, C, K, S, R)
+    top = {"uint8": 8, "uint16": 16, "uint32": 32}[layout.aff]
+    aff = (
+        (np.uint32(1) << rng.integers(0, top, (C, K, 2)).astype(np.uint32))
+        * (rng.random((C, K, 2)) < 0.3)
+    ).astype(np.uint32)
+    aff[0, 0, 0] = np.uint32(1) << (top - 1)
+    req = rng.integers(0, min(60, 3270 // K), (C, K, R)).astype(np.float32) * 10
+    req[0, 0, 0] = {"int16": 100.0, "uint16": 40000.0,
+                    "float32": 70000.0}[layout.used]
+    valid = host.slot_valid.copy()
+    valid[0, 0] = True
+    free = host.spot_free.copy()
+    free[S // 2] = 80000.0
+    host = host._replace(slot_req=req, slot_valid=valid, slot_aff=aff,
+                         spot_free=free)
+    check(carry_layout(host) == layout,
+          f"random pack has layout {carry_layout(host)}, not {layout}")
+    return host
 
 
 def same(torch, a, b) -> float:
@@ -279,6 +322,214 @@ def contended_phase(np, torch, fk, host, ans, kind, card) -> str:
     )
 
 
+def stream_union_breakdown(torch, fk, packed, layout, n: int) -> str:
+    """Median ms of each pass of one streamed union solve (CUDA events,
+    5 runs); repair and validate are timed whether or not the union's
+    gate runs them."""
+    from k8s_spot_rescheduler_tpu_torch.solver.fallback import union_program
+    from k8s_spot_rescheduler_tpu_torch.solver.repair import (
+        plan_repair_chunked,
+    )
+    from k8s_spot_rescheduler_tpu_torch.solver.validate import (
+        validate_assignment,
+    )
+
+    assign = fk.plan_stream_ff_kernel(
+        packed, carry_chunks=n, layout=layout
+    ).assignment
+    union = union_program(8, carry_chunks=n, carry_layout=layout,
+                          use_kernel=True)
+    parts = [
+        (f"B3 first-fit over {n} spot chunks",
+         lambda: fk.plan_stream_ff_kernel(packed, carry_chunks=n,
+                                          layout=layout)),
+        ("B4 best-fit",
+         lambda: fk.plan_stream_bf_kernel(packed, carry_chunks=n,
+                                          layout=layout)),
+        ("chunked repair (plain: partial pass, 8 rounds, validate)",
+         lambda: plan_repair_chunked(packed, rounds=8, spot_chunks=n,
+                                     layout=layout)),
+        ("validate (plain)", lambda: validate_assignment(packed, assign)),
+        ("union as run", lambda: union(packed)),
+    ]
+    return "; ".join(
+        f"{name} {time_ms(torch, fn, reps=5, warmup=1):.3f} ms"
+        for name, fn in parts
+    )
+
+
+def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
+    """Phase 5: the carry-streamed narrow union. Raises on any mismatch;
+    adds B4's row to ``timings``; returns the launch counts of the
+    streamed union's path (counts reset just before each run of the
+    path, read just after, summed)."""
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import to_device
+    from k8s_spot_rescheduler_tpu_torch.solver.carry import (
+        CarryLayout,
+        carry_layout,
+    )
+    from k8s_spot_rescheduler_tpu_torch.solver.fallback import union_program
+    from k8s_spot_rescheduler_tpu_torch.solver.ffd import plan_ffd_streamed
+    from k8s_spot_rescheduler_tpu_torch.solver.repair import (
+        plan_repair_chunked,
+    )
+    from k8s_spot_rescheduler_tpu_torch.solver.schedule import (
+        make_schedule_planner,
+    )
+    from k8s_spot_rescheduler_tpu_torch.solver.select import (
+        StagedPlanner,
+        make_fused_planner,
+    )
+
+    # ---- B4 against its plain version, every carry dtype ---------------
+    layouts = [
+        CarryLayout(used, count, aff)
+        for used in ("int16", "uint16", "float32")
+        for count in ("int8", "int16")
+        for aff in ("uint8", "uint16", "uint32")
+    ]
+    narrow3 = CarryLayout("int16", "int8", "uint8")
+    rng = np.random.default_rng(5)
+    cases = [
+        (lay, (int(rng.integers(1, 40)),
+               130 if lay.count == "int16" else int(rng.integers(1, 40)),
+               int(rng.integers(1, 700)), int(rng.integers(1, 5))))
+        for lay in layouts
+    ]
+    k32 = [lay for lay in layouts if lay.count == "int8"]
+    cases += [(k32[4 * i % len(k32)], (300, 32, 2560 + 37 * i, 4))
+              for i in range(5)]
+    cases.append((narrow3, (64, 32, 24000, 4)))  # past shared memory
+    for i, (lay, shape) in enumerate(cases):
+        dev = to_device(layout_packed(np, rng, lay, *shape), "cuda")
+        got = fk.plan_stream_bf_kernel(dev, carry_chunks=2, layout=lay)
+        for n in (1, 3):
+            check(same(torch, got, plan_ffd_streamed(
+                dev, carry_chunks=n, layout=lay, best_fit=True)) == 0,
+                f"random pack {i} {shape} {lay}: B4 != plain (n={n})")
+        check(same(torch, got, fk.plan_ffd_kernel(dev, best_fit=True)) == 0,
+              f"random pack {i} {shape} {lay}: B4 != B2")
+        if shape[2] == 24000:
+            check(not fk.stream_state_fits_smem(lay, 4, 2, 24000, 0),
+                  "the S=24000 pack should hold its carry in device memory")
+    torch.cuda.synchronize()
+    log(f"[5] {len(cases)} seeded random packs (all {len(layouts)} carry "
+        f"dtype combinations; the last, S=24000 at config 3's layout, "
+        f"with the carry in device memory): B4 bit-identical to the "
+        f"plain streamed best-fit and to B2")
+
+    # ---- B4 at config 3: time, plain time, bound ------------------------
+    _, host3, _ = problems[0]
+    dev3 = to_device(host3, "cuda")
+    lay3 = carry_layout(host3)
+    C, K, R = host3.slot_req.shape
+    S = host3.spot_free.shape[0]
+    A = host3.spot_aff.shape[1]
+    n4 = STREAM_CHUNKS[-1]
+    b4 = fk.plan_stream_bf_kernel(dev3, carry_chunks=n4, layout=lay3)
+    err4 = max(
+        same(torch, b4, plan_ffd_streamed(dev3, carry_chunks=n4, layout=lay3,
+                                          best_fit=True)),
+        same(torch, b4, fk.plan_ffd_kernel(dev3, best_fit=True)),
+    )
+    check(err4 == 0, "config 3: B4 != plain streamed best-fit / B2")
+    ms = time_ms(torch, lambda: fk.plan_stream_bf_kernel(
+        dev3, carry_chunks=n4, layout=lay3))
+    b2_ms = time_ms(torch, lambda: fk.plan_ffd_kernel(dev3, best_fit=True))
+    plain_ms = time_ms(torch, lambda: plan_ffd_streamed(
+        dev3, carry_chunks=n4, layout=lay3, best_fit=True), reps=5, warmup=1)
+    bound_ms, bound_by = ffd_bound(np, host3, None, True)
+    timings["B4"] = dict(
+        name="B4", what="fused best-fit stream", route="cuda",
+        source="k8s_spot_rescheduler_tpu_torch/ops/csrc/stream_bf.cu",
+        replaces="k8s_spot_rescheduler_tpu/ops/pallas_ffd.py:191",
+        max_abs_err=err4, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+    )
+    log(f"[5] config 3 layout {tuple(lay3)}: lane carry "
+        f"{fk.stream_state_bytes(lay3, R, A, S)} B (B1/B2 lane state "
+        f"{fk.library().ffd_state_bytes(R, A, S)} B); B4 {ms:.4f} ms kernel, "
+        f"B2 {b2_ms:.4f} ms in this run (B4/B2 {ms / b2_ms:.3f}), plain "
+        f"streamed best-fit ({n4} chunks) {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}) on {kind} [{card}]")
+
+    # ---- the streamed union against the frozen JAX answers --------------
+    def lanes_equal(res, ans, prefix):
+        return (np.array_equal(res.feasible.cpu().numpy(), ans[f"{prefix}_feasible"])
+                and np.array_equal(res.assignment.cpu().numpy(),
+                                   ans[f"{prefix}_assignment"]))
+
+    totals = {name: 0 for name in fk.LAUNCHES}
+    for name, host, ans in problems:
+        dev = to_device(host, "cuda")
+        lay = carry_layout(host)
+        for n in STREAM_CHUNKS:
+            union = union_program(8, carry_chunks=n, carry_layout=lay,
+                                  use_kernel=True)
+            fk.reset_launch_counts()
+            sel_vec = make_fused_planner(union)(dev).cpu().numpy()
+            sel, _ = StagedPlanner(union, chunk_lanes=256,
+                                   early_exit=True).solve(dev)
+            mat = make_schedule_planner(union, 32)(dev).cpu().numpy()
+            lanes = union(dev) if "union_feasible" in ans else None
+            launches = dict(fk.LAUNCHES)
+            for kernel, count in launches.items():
+                totals[kernel] += count
+            check(launches["B3"] > 0 and launches["B4"] > 0,
+                  f"{name} n={n}: B3/B4 not launched on the streamed union "
+                  f"{launches}")
+            check(np.array_equal(sel_vec, ans["selection"]),
+                  f"{name} n={n}: streamed selection != the JAX package's")
+            staged = np.concatenate([[sel.index, int(sel.found),
+                                      sel.n_feasible], sel.row])
+            check(np.array_equal(staged, ans["staged_selection"]),
+                  f"{name} n={n}: streamed staged selection != JAX")
+            check(np.array_equal(mat, ans["schedule"]),
+                  f"{name} n={n}: streamed schedule != the JAX package's")
+            extra = ""
+            if lanes is not None:
+                want = "stream_union" if n == 4 else "union"
+                check(lanes_equal(lanes, ans, want),
+                      f"{name} n={n}: streamed union lanes != JAX {want}")
+                extra = f", union lanes == JAX {want}"
+                if n == 4:
+                    check(lanes_equal(plan_repair_chunked(
+                        dev, rounds=8, spot_chunks=4, layout=lay), ans,
+                        "repair_chunked"),
+                        f"{name}: plan_repair_chunked != the JAX package's")
+                    extra += ", plan_repair_chunked lanes == JAX"
+            log(f"[5] {name} layout {tuple(lay)} n={n}: selection, staged "
+                f"selection, 32-step schedule == JAX{extra}; launches "
+                f"{launches}")
+
+    union4 = union_program(8, carry_chunks=n4, carry_layout=lay3,
+                           use_kernel=True)
+    staged4 = StagedPlanner(union4, chunk_lanes=256, early_exit=True)
+    tick_ms, sched_ms = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        staged4.solve(dev3)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        make_schedule_planner(union4, 32)(dev3).cpu()
+        sched_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[5] config 3 streamed union passes (n={n4}), all {C} lanes: "
+        f"{stream_union_breakdown(torch, fk, dev3, lay3, n4)} on {kind} "
+        f"[{card}]")
+    _, hostc, _ = problems[-1]
+    devc = to_device(hostc, "cuda")
+    log(f"[5] contended streamed union passes (n={n4}), all "
+        f"{hostc.slot_req.shape[0]} lanes: "
+        f"{stream_union_breakdown(torch, fk, devc, carry_layout(hostc), n4)} "
+        f"on {kind} [{card}]")
+    log(f"[5] config 3 streamed staged tick (resident tensors, no upload) "
+        f"median {statistics.median(tick_ms):.3f} ms over 10; 32-step "
+        f"streamed schedule median {statistics.median(sched_ms):.3f} ms over "
+        f"3; host clock around synced fetches, on {kind} [{card}]")
+    return totals
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -317,15 +568,22 @@ def main() -> int:
         f"device_count={torch.cuda.device_count()} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib_path = fk.build()
+    lib_paths = fk.build()
     lib = fk.library()
+    stream_lib = fk.library("stream_bf")
     build_s = time.perf_counter() - t0
-    smem = lib.ffd_max_dynamic_smem(0)
-    log(f"[1] kernel build {build_s:.2f} s -> {os.path.relpath(lib_path, here)}; "
-        f"max dynamic smem {smem} B")
-    for line in fk.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[1] ptxas: {line.strip()}")
+    log(f"[1] kernel build {build_s:.2f} s (one nvcc per source, in "
+        f"parallel) -> "
+        f"{', '.join(os.path.relpath(p, here) for p in lib_paths.values())}; "
+        f"max dynamic smem B1/B2 {lib.ffd_max_dynamic_smem(0)} B, "
+        f"B4 {stream_lib.stream_bf_max_dynamic_smem(0)} B")
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", fk.BUILD_LOG)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                         fk.BUILD_LOG)]
+    if regs:
+        log(f"[1] ptxas: {len(regs)} kernel instances, {min(regs)}-"
+            f"{max(regs)} registers, at most {max(spills, default=0)} B of "
+            f"spill stores")
 
     data = os.path.join(here, "k8s_spot_rescheduler_tpu_torch", "data")
     host3, ans3 = load_npz(os.path.join(data, "config3_seed0.npz"))
@@ -369,8 +627,9 @@ def main() -> int:
     plain_bf = plan_ffd(dev3, best_fit=True)
     b1 = fk.plan_ffd_kernel(dev3)
     b2 = fk.plan_ffd_kernel(dev3, best_fit=True)
-    b3 = fk.plan_ffd_chunked(dev3, SPOT_CHUNK)
-    b3_plain = fk.plan_ffd_chunked_plain(dev3, SPOT_CHUNK)
+    b3_chunk = -(-S // STREAM_CHUNKS[-1])  # the streamed union's chunks
+    b3 = fk.plan_ffd_chunked(dev3, b3_chunk)
+    b3_plain = fk.plan_ffd_chunked_plain(dev3, b3_chunk)
     err1 = same(torch, b1, plain_ff)
     err2 = same(torch, b2, plain_bf)
     err3 = max(same(torch, b3, b3_plain), same(torch, b3, b1))
@@ -379,7 +638,7 @@ def main() -> int:
     check(err3 == 0, "config 3: B3 != plain chunk loop / unchunked B1")
     _, raw_ff = fk.launch_raw(dev3, False)
     raw_ff = raw_ff.cpu().numpy()
-    log(f"[2] config 3: B1, B2, B3 (Sc={SPOT_CHUNK}) bit-identical to plain; "
+    log(f"[2] config 3: B1, B2, B3 (Sc={b3_chunk}) bit-identical to plain; "
         f"feasible lanes ff={int(b1.feasible.sum())} bf={int(b2.feasible.sum())}")
 
     specs = [
@@ -390,10 +649,10 @@ def main() -> int:
          lambda: fk.plan_ffd_kernel(dev3, best_fit=True),
          lambda: plan_ffd(dev3, best_fit=True), err2,
          ffd_bound(np, host3, None, True)),
-        ("B3", f"first-fit over spot chunks of {SPOT_CHUNK}",
+        ("B3", f"first-fit over spot chunks of {b3_chunk}",
          "k8s_spot_rescheduler_tpu/ops/pallas_ffd.py:351",
-         lambda: fk.plan_ffd_chunked(dev3, SPOT_CHUNK),
-         lambda: fk.plan_ffd_chunked_plain(dev3, SPOT_CHUNK), err3,
+         lambda: fk.plan_ffd_chunked(dev3, b3_chunk),
+         lambda: fk.plan_ffd_chunked_plain(dev3, b3_chunk), err3,
          ffd_bound(np, host3, raw_ff, False)),
     ]
     timings = {}
@@ -462,17 +721,6 @@ def main() -> int:
     log("[3] config 3 unstaged selection == JAX; config 4 schedule and "
         "staged selection == JAX")
 
-    chunked = TorchSolverPlanner(device="cuda", spot_chunk=SPOT_CHUNK)
-    fk.reset_launch_counts()
-    sel_c = chunked.plan_packed(host3)
-    chunk_launches = dict(fk.LAUNCHES)
-    check(chunk_launches["B3"] > 0, "B3 never launched on its path")
-    check(sel_c.index == sel.index and np.array_equal(sel_c.row, sel.row)
-          and sel_c.n_feasible == sel.n_feasible,
-          "chunked first-fit tick != the main tick")
-    log(f"[3] B3 path (first-fit over spot chunks of {SPOT_CHUNK}) launches: "
-        f"{chunk_launches}; selection == main tick")
-
     lo = sel.index // 256 * 256  # the staged tick's solved chunk
     chunk3 = dev3._replace(
         slot_req=dev3.slot_req[lo:lo + 256],
@@ -501,18 +749,25 @@ def main() -> int:
         f"{sched_s * 1e3:.3f} ms); fetches_total={planner.fetches_total}; "
         f"host clock around synced fetches, on {kind} [{card}]")
 
+    log(contended_phase(np, torch, fk, hostc, ansc, kind, card))
+    stream_launches = stream_phase(
+        np, torch, fk, timings, kind, card,
+        (("config 3", host3, ans3), ("config 4", host4, ans4),
+         ("contended", hostc, ansc)),
+    )
+
     out = []
     for name, launches, path in (
         ("B1", main_launches["B1"], "main"),
         ("B2", main_launches["B2"], "main"),
-        ("B3", chunk_launches["B3"], f"tick with spot chunks of {SPOT_CHUNK}"),
+        ("B3", stream_launches["B3"], "streamed union"),
+        ("B4", stream_launches["B4"], "streamed union"),
     ):
         row = dict(timings[name])
         row.pop("what")
         row["launches"] = launches
         row["path"] = path
         out.append(row)
-    log(contended_phase(np, torch, fk, hostc, ansc, kind, card))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)

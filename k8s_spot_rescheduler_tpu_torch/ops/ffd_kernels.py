@@ -1,4 +1,4 @@
-"""Wrappers of kernels B1, B2 and B3: the greedy solve on the card.
+"""Wrappers of kernels B1-B4: the greedy solve on the card.
 
 - **B1** ``plan_ffd_kernel(packed)``: first-fit of every candidate
   lane's pod slots onto the spot pool, CUDA C++ (``csrc/ffd.cu``).
@@ -12,7 +12,13 @@
   masked to the pods still unplaced and indices offset by the chunk's
   start; replaces ``pallas_ffd.py:351`` ``_plan_ffd_chunked``. Exact
   for first-fit: per-spot state is independent across chunks and
-  first-fit prefers earlier spots.
+  first-fit prefers earlier spots. It is the carry-streamed union's
+  first-fit over more than one chunk (``plan_stream_ff_kernel``).
+- **B4** ``plan_stream_bf_kernel(packed, carry_chunks=, layout=)``: the
+  fused best-fit elect-then-commit over the narrow delta carry, CUDA
+  C++ (``csrc/stream_bf.cu``); replaces ``pallas_ffd.py:191``
+  ``_stream_kernel`` (entry ``plan_stream_bf_pallas``), the
+  carry-streamed union's best-fit pass.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version (``solver/ffd``), and only
@@ -20,14 +26,16 @@ then. ``LAUNCHES`` counts kernel launches per wrapper (one per launch,
 nowhere else), so a run can show its main path went through the
 kernels.
 
-Build: ``nvcc`` compiles ``csrc/ffd.cu`` for ``sm_90a`` into a shared
-library with a plain C interface under ``build/torch_kernels/`` at the
-repo root, at first use, keyed by the source's hash; ``ctypes`` loads
-it. Tensor pointers and PyTorch's current stream are passed as
-integers; the C function returns the launch's ``cudaError_t``.
-``LAUNCH_ARGS`` lists ``ffd_launch``'s parameters in their C order and
-builds both its ``argtypes`` and each call; a test holds it against the
-signature in ``ffd.cu``.
+Build: ``nvcc`` compiles each source in ``SOURCES`` for ``sm_90a`` into
+a shared library with a plain C interface under ``build/torch_kernels/``
+at the repo root, at first use, keyed by the hash of that source and
+the flags; the sources build in parallel, one ``nvcc`` each, and
+``ctypes`` loads them. Tensor pointers and PyTorch's current stream are
+passed as integers; each launch function returns the launch's
+``cudaError_t``. ``LAUNCH_ARGS`` and ``STREAM_LAUNCH_ARGS`` list
+``ffd_launch``'s and ``stream_bf_launch``'s parameters in their C order
+and build both the ``argtypes`` and each call; a test holds them
+against the signatures in the sources.
 """
 
 from __future__ import annotations
@@ -41,14 +49,21 @@ import subprocess
 import torch
 
 from k8s_spot_rescheduler_tpu_torch.models.tensors import shapes
-from k8s_spot_rescheduler_tpu_torch.solver.ffd import ffd_raw, plan_ffd
+from k8s_spot_rescheduler_tpu_torch.solver.carry import NARROW_LAYOUT
+from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
+    ffd_raw,
+    plan_ffd,
+    plan_ffd_streamed,
+)
 from k8s_spot_rescheduler_tpu_torch.solver.result import SolveResult
 
-LAUNCHES = {"B1": 0, "B2": 0, "B3": 0}
+LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
 
-SOURCE = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "csrc", "ffd.cu"
-)
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = {  # library name -> its one source
+    "ffd": os.path.join(CSRC, "ffd.cu"),
+    "stream_bf": os.path.join(CSRC, "stream_bf.cu"),
+}
 REPO_ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
@@ -63,7 +78,7 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-_lib = None
+_libs = {}  # library name -> loaded ctypes library
 BUILD_LOG = ""  # nvcc's output of the last build (ptxas register use)
 
 _FIELDS = (
@@ -92,7 +107,24 @@ LAUNCH_ARGS = (
     ("stream", "stream"),
 )
 
-_SMEM_LIMIT = {}  # device index -> ffd_max_dynamic_smem
+# stream_bf_launch's parameters in C order, as LAUNCH_ARGS
+STREAM_LAUNCH_ARGS = (
+    *((name, dtype) for name, dtype, _ in _FIELDS),
+    ("feasible", torch.bool),
+    ("chosen", torch.int32),
+    ("workspace", torch.int32),
+    *((dim, "int") for dim in (
+        "C", "K", "R", "W", "A", "S", "used_code", "count_code", "aff_code",
+    )),
+    ("stream", "stream"),
+)
+
+# stream_bf.cu's code of each plane dtype a CarryLayout names
+USED_CODES = {"int16": 0, "uint16": 1, "float32": 2}
+COUNT_CODES = {"int8": 0, "int16": 1, "int32": 2}
+AFF_CODES = {"uint8": 0, "uint16": 1, "uint32": 2}
+
+_SMEM_LIMIT = {}  # (library name, device index) -> its max dynamic smem
 
 
 def reset_launch_counts() -> None:
@@ -113,48 +145,76 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile ``csrc/ffd.cu`` (once per source hash); returns the
-    shared library's path. Raises with nvcc's output on failure."""
-    global BUILD_LOG
-    with open(SOURCE, "rb") as f:
+def _library_path(name: str) -> str:
+    with open(SOURCES[name], "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libffd_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}"
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build() -> dict:
+    """Compile every source in ``SOURCES`` whose library is not built
+    yet for its current hash, one ``nvcc`` per source, all started
+    together; returns {library name: path}. Raises with nvcc's output
+    on failure."""
+    global BUILD_LOG
+    paths = {name: _library_path(name) for name in SOURCES}
+    running = []
+    for name, out in paths.items():
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-    os.replace(tmp, out)
-    return out
+        running.append((name, cmd, proc, tmp))
+    logs, failed = [], []
+    for name, cmd, proc, tmp in running:
+        out, _ = proc.communicate()
+        logs.append(f"[{name}] {out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+        else:
+            os.replace(tmp, paths[name])
+    if running:
+        BUILD_LOG = "\n".join(logs)
+    if failed:
+        raise RuntimeError("\n".join(failed) + "\n" + BUILD_LOG)
+    return paths
 
 
-def library():
-    """The loaded kernel library (built at first use)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ffd_launch.argtypes = [
-            i32 if kind == "int" else ptr for _, kind in LAUNCH_ARGS
-        ]
-        lib.ffd_launch.restype = i32
-        lib.ffd_max_dynamic_smem.argtypes = [i32]
-        lib.ffd_max_dynamic_smem.restype = i32
-        lib.ffd_state_bytes.argtypes = [i32, i32, i32]
-        lib.ffd_state_bytes.restype = ctypes.c_longlong
-        lib.ffd_error_string.argtypes = [i32]
-        lib.ffd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _bind(name: str, lib) -> None:
+    """Set the argument and result types of library ``name``'s C
+    functions, each prefixed with the library's name."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    args = {"ffd": LAUNCH_ARGS, "stream_bf": STREAM_LAUNCH_ARGS}[name]
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [i32 if kind == "int" else ptr for _, kind in args]
+    launch.restype = i32
+    smem = getattr(lib, f"{name}_max_dynamic_smem")
+    smem.argtypes = [i32]
+    smem.restype = i32
+    state = getattr(lib, f"{name}_state_bytes")
+    state.argtypes = [i32] * (3 if name == "ffd" else 6)
+    state.restype = ctypes.c_longlong
+    error = getattr(lib, f"{name}_error_string")
+    error.argtypes = [i32]
+    error.restype = ctypes.c_char_p
+
+
+def library(name: str = "ffd"):
+    """The loaded kernel library ``name`` (every library is built at
+    first use)."""
+    if name not in _libs:
+        for lib_name, path in build().items():
+            if lib_name not in _libs:
+                lib = ctypes.CDLL(path)
+                _bind(lib_name, lib)
+                _libs[lib_name] = lib
+    return _libs[name]
 
 
 def _check(packed) -> None:
@@ -174,22 +234,67 @@ def _check(packed) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def state_fits_smem(R: int, A: int, S: int, device_index: int) -> bool:
-    """Whether one lane's state (R+1+A planes of S words) fits the
-    dynamic shared memory a block may take on the card (read once per
-    device)."""
-    lib = library()
-    limit = _SMEM_LIMIT.get(device_index)
+def _smem_limit(name: str, device_index: int) -> int:
+    """The dynamic shared memory a block of library ``name``'s kernels
+    may take on the card (read once per device)."""
+    limit = _SMEM_LIMIT.get((name, device_index))
     if limit is None:
-        limit = lib.ffd_max_dynamic_smem(device_index)
+        limit = getattr(library(name), f"{name}_max_dynamic_smem")(
+            device_index
+        )
         if limit < 0:
             raise RuntimeError("cannot read the card's shared-memory limit")
-        _SMEM_LIMIT[device_index] = limit
-    return lib.ffd_state_bytes(R, A, S) <= limit
+        _SMEM_LIMIT[(name, device_index)] = limit
+    return limit
+
+
+def state_fits_smem(R: int, A: int, S: int, device_index: int) -> bool:
+    """Whether one lane's B1/B2 state (R+1+A planes of S words) fits the
+    dynamic shared memory a block may take on the card."""
+    return library().ffd_state_bytes(R, A, S) <= _smem_limit(
+        "ffd", device_index
+    )
+
+
+def _stream_codes(layout) -> tuple:
+    try:
+        return (
+            USED_CODES[layout.used],
+            COUNT_CODES[layout.count],
+            AFF_CODES[layout.aff],
+        )
+    except KeyError as err:
+        raise ValueError(f"kernel B4 has no plane of dtype {err}") from None
+
+
+def stream_state_bytes(layout, R: int, A: int, S: int) -> int:
+    """Bytes of one lane's B4 delta carry under ``layout`` (each plane
+    16-byte aligned)."""
+    return library("stream_bf").stream_bf_state_bytes(
+        R, A, S, *_stream_codes(layout)
+    )
+
+
+def stream_state_fits_smem(layout, R: int, A: int, S: int,
+                           device_index: int) -> bool:
+    """Whether one lane's B4 delta carry fits a block's shared memory."""
+    return stream_state_bytes(layout, R, A, S) <= _smem_limit(
+        "stream_bf", device_index
+    )
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _raise_on(lib, name: str, err: int) -> None:
+    if err != 0:
+        message = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {message}")
 
 
 def launch_raw(packed, best_fit: bool):
-    """One kernel launch, uncounted: (feasible bool [C], chosen int32
+    """One B1/B2 launch, uncounted: (feasible bool [C], chosen int32
     [C, K] with -1 for unplaced slots, NOT masked by lane feasibility;
     lanes with cand_valid=0 report feasible=0 and chosen=-1). The lane
     state lives in shared memory where it fits (``state_fits_smem``),
@@ -198,7 +303,7 @@ def launch_raw(packed, best_fit: bool):
     lib = library()
     C, K, S, R, W, A = shapes(packed)
     dev = packed.slot_req.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    index = _device_index(dev)
     feasible = torch.empty((C,), dtype=torch.bool, device=dev)
     chosen = torch.empty((C, K), dtype=torch.int32, device=dev)
     workspace = None
@@ -219,10 +324,41 @@ def launch_raw(packed, best_fit: bool):
             stream=torch.cuda.current_stream(index).cuda_stream,
         )
         err = lib.ffd_launch(*(args[name] for name, _ in LAUNCH_ARGS))
-    if err != 0:
-        raise RuntimeError(
-            f"ffd kernel launch failed: {lib.ffd_error_string(err).decode()}"
+    _raise_on(lib, "ffd", err)
+    return feasible, chosen
+
+
+def launch_stream_raw(packed, layout):
+    """One B4 launch, uncounted: (feasible, chosen) as ``launch_raw``.
+    The lane's delta carry lives in shared memory where it fits
+    (``stream_state_fits_smem``), else in a device-memory workspace
+    allocated here, in the layout's dtypes."""
+    _check(packed)
+    codes = _stream_codes(layout)
+    lib = library("stream_bf")
+    C, K, S, R, W, A = shapes(packed)
+    dev = packed.slot_req.device
+    index = _device_index(dev)
+    feasible = torch.empty((C,), dtype=torch.bool, device=dev)
+    chosen = torch.empty((C, K), dtype=torch.int32, device=dev)
+    buf = None
+    if not stream_state_fits_smem(layout, R, A, S, index):
+        lane_bytes = stream_state_bytes(layout, R, A, S)  # a multiple of 16
+        buf = torch.empty((C * lane_bytes // 4,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(index):
+        args = {name: getattr(packed, name).data_ptr() for name, _, _ in _FIELDS}
+        args.update(
+            feasible=feasible.data_ptr(),
+            chosen=chosen.data_ptr(),
+            workspace=None if buf is None else buf.data_ptr(),
+            C=C, K=K, R=R, W=W, A=A, S=S,
+            used_code=codes[0], count_code=codes[1], aff_code=codes[2],
+            stream=torch.cuda.current_stream(index).cuda_stream,
         )
+        err = lib.stream_bf_launch(
+            *(args[name] for name, _ in STREAM_LAUNCH_ARGS)
+        )
+    _raise_on(lib, "stream_bf", err)
     return feasible, chosen
 
 
@@ -287,13 +423,49 @@ def plan_ffd_chunked(packed, spot_chunk: int) -> SolveResult:
     return _chunk_loop(packed, spot_chunk, raw)
 
 
-def greedy_solver(spot_chunk: int = 0):
-    """The union's greedy pass, ``solve(packed, best_fit=False)``: B2 for
-    best-fit; B1 for first-fit, or B3 when ``spot_chunk`` > 0."""
+def greedy_solver():
+    """The union's greedy pass, ``solve(packed, best_fit=False)``: B1 for
+    first-fit, B2 for best-fit."""
 
     def solve(packed, best_fit: bool = False) -> SolveResult:
-        if best_fit or spot_chunk <= 0:
-            return plan_ffd_kernel(packed, best_fit=best_fit)
-        return plan_ffd_chunked(packed, spot_chunk)
+        return plan_ffd_kernel(packed, best_fit=best_fit)
 
     return solve
+
+
+def plan_stream_ff_kernel(
+    packed, *, carry_chunks: int = 2, layout=NARROW_LAYOUT
+) -> SolveResult:
+    """The carry-streamed union's first-fit (the contract of
+    ``solver/ffd.plan_ffd_streamed``): B1 for one chunk, B3 over spot
+    chunks of ceil(S / ``carry_chunks``) spots for more. The kernels
+    hold their lane state wide, so ``layout`` sizes only the plain
+    version, which CPU tensors take."""
+    if not packed.slot_req.is_cuda:
+        return plan_ffd_streamed(
+            packed, carry_chunks=carry_chunks, layout=layout
+        )
+    if carry_chunks <= 1:
+        return plan_ffd_kernel(packed)
+    S = packed.spot_free.shape[0]
+    return plan_ffd_chunked(packed, max(1, -(-S // carry_chunks)))
+
+
+def plan_stream_bf_kernel(
+    packed, *, carry_chunks: int = 2, layout=NARROW_LAYOUT
+) -> SolveResult:
+    """B4: the fused best-fit stream solve over the narrow delta carry
+    ``layout`` (the contract of ``plan_ffd_streamed(best_fit=True)``
+    and of the JAX package's ``plan_stream_bf_pallas``). Past a block's
+    shared memory the carry lives in a device-memory workspace.
+    ``carry_chunks`` does not change the result: the chunked election
+    is the global one; it sizes only the plain version, which CPU
+    tensors take."""
+    if not packed.slot_req.is_cuda:
+        return plan_ffd_streamed(
+            packed, carry_chunks=carry_chunks, layout=layout, best_fit=True
+        )
+    feasible, chosen = launch_stream_raw(packed, layout)
+    LAUNCHES["B4"] += 1
+    assignment = torch.where(feasible[:, None], chosen, -1)
+    return SolveResult(feasible=feasible, assignment=assignment)

@@ -20,8 +20,12 @@ host pack path itself is a later slice):
 - ``fetches_total``: one per blocking planner fetch (a plan or a
   schedule), as in the reference.
 
-The union's greedy pass is kernel B1/B2 (``ops/ffd_kernels``) on the
-card and the plain ``solver/ffd.plan_ffd`` on the CPU.
+The union is ``solver/fallback.union_program`` with the kernels on: its
+greedy passes are kernels B1/B2 (``ops/ffd_kernels``) on the card and
+their plain versions on the CPU. With one device the JAX package's
+dispatch ladder (``solver/memory.pick_tier``) always answers "single",
+so this is the union it runs; the carry-streamed union (kernels B3/B4)
+is its per-device block program on the sharded tiers.
 """
 
 from __future__ import annotations
@@ -39,12 +43,8 @@ from k8s_spot_rescheduler_tpu_torch.models.tensors import (
     host_array,
     to_device,
 )
-from k8s_spot_rescheduler_tpu_torch.ops.ffd_kernels import greedy_solver
 from k8s_spot_rescheduler_tpu_torch.solver import schedule as sched_mod
-from k8s_spot_rescheduler_tpu_torch.solver.fallback import (
-    with_best_fit_fallback,
-    with_repair,
-)
+from k8s_spot_rescheduler_tpu_torch.solver.fallback import union_program
 from k8s_spot_rescheduler_tpu_torch.solver.select import (
     StagedPlanner,
     decode_selection,
@@ -84,23 +84,18 @@ _DELTA_MAP = (
 class TorchSolverPlanner:
     """Pack -> resident upload -> union solve -> decode, on one device.
 
-    ``device`` defaults to ``cuda`` (raises without a card).
-    ``spot_chunk`` > 0 runs the first-fit pass as kernel B3 over spot
-    chunks of that many spots (the path for spot axes past the card's
-    shared memory, forced here for testing)."""
+    ``device`` defaults to ``cuda`` (raises without a card)."""
 
     def __init__(self, config: Optional[PlannerConfig] = None, *,
-                 device=None, spot_chunk: int = 0):
+                 device=None):
         self.config = config or PlannerConfig()
         self.device = resolve_device(device)
-        base = greedy_solver(spot_chunk)
         cfg = self.config
-        if cfg.fallback_best_fit and cfg.repair_rounds > 0:
-            self.union = with_repair(base, cfg.repair_rounds)
-        elif cfg.fallback_best_fit:
-            self.union = with_best_fit_fallback(base)
-        else:
-            self.union = base
+        self.union = union_program(
+            cfg.repair_rounds if cfg.fallback_best_fit else 0,
+            cfg.fallback_best_fit,
+            use_kernel=True,
+        )
         self._fused = make_fused_planner(self.union)
         self._staged = StagedPlanner(
             self.union,

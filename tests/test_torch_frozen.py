@@ -2,7 +2,9 @@
 rescheduler_tpu_torch/data/``) against the JAX package on the CPU: each
 pack equals a fresh pack of its synthetic config, and its stored
 selection equals the JAX fused union's; on the contended problem the
-port's union and repair equal the stored lane-level JAX answers.
+port's union and repair, and its carry-streamed union and spot-chunked
+repair, equal the stored lane-level JAX answers (and JAX still gives
+the streamed ones).
 ``tests/torch_port_fixtures.py`` writes them; a change to the pack path
 or the solver that moves either turns this red until they are re-frozen.
 """
@@ -19,10 +21,13 @@ from k8s_spot_rescheduler_tpu_torch.models.tensors import load_npz, to_device
 from k8s_spot_rescheduler_tpu_torch.solver import fallback as tfallback
 from k8s_spot_rescheduler_tpu_torch.solver import ffd as tffd
 from k8s_spot_rescheduler_tpu_torch.solver import repair as trepair
+from k8s_spot_rescheduler_tpu_torch.solver.carry import carry_layout
 from tests.torch_port_fixtures import (
     CONTENDED,
     HORIZON,
+    STREAM_CHUNKS,
     frozen_path,
+    jax_stream_lane_answers,
     pack_config,
 )
 
@@ -55,20 +60,38 @@ def test_frozen_pack_and_selection_match_the_jax_package(config_id):
     )
 
 
-@pytest.mark.parametrize("solver", ["union", "repair"])
+@pytest.mark.parametrize(
+    "solver", ["union", "repair", "stream_union", "repair_chunked"]
+)
 def test_port_matches_the_frozen_contended_lane_answers(solver):
     """Repair runs here: greedy leaves most valid lanes unproven."""
     frozen, answers = load_npz(frozen_path(CONTENDED))
     packed = to_device(frozen, "cpu")
+    layout = carry_layout(packed)
     if solver == "union":
         got = tfallback.with_repair(tffd.plan_ffd, 8)(packed)
         greedy = tfallback.with_best_fit_fallback(tffd.plan_ffd)(packed)
         assert int(greedy.feasible.sum()) < int(got.feasible.sum())
-    else:
+    elif solver == "repair":
         got = trepair.plan_repair(packed, rounds=8)
+    elif solver == "stream_union":
+        got = tfallback.union_program(
+            8, carry_chunks=STREAM_CHUNKS, carry_layout=layout,
+            use_kernel=True,
+        )(packed)
+    else:
+        got = trepair.plan_repair_chunked(
+            packed, rounds=8, spot_chunks=STREAM_CHUNKS, layout=layout
+        )
     np.testing.assert_array_equal(
         got.feasible.numpy(), answers[f"{solver}_feasible"]
     )
     np.testing.assert_array_equal(
         got.assignment.numpy(), answers[f"{solver}_assignment"]
     )
+
+
+def test_jax_gives_the_frozen_streamed_contended_answers():
+    frozen, answers = load_npz(frozen_path(CONTENDED))
+    for key, value in jax_stream_lane_answers(PackedCluster(*frozen)).items():
+        np.testing.assert_array_equal(answers[key], value, err_msg=key)

@@ -201,14 +201,17 @@ def test_chunked_first_fit_equals_unchunked(seed, chunk):
 
 
 def test_greedy_solver_routes_modes():
+    """First-fit goes to B1, best-fit to B2: on CPU tensors their plain
+    versions, with no launch."""
     packed = _cpu(_random_packed(np.random.default_rng(11)))
-    chunked = ffd_kernels.greedy_solver(spot_chunk=2)
-    plain = ffd_kernels.greedy_solver()
+    solve = ffd_kernels.greedy_solver()
+    before = dict(ffd_kernels.LAUNCHES)
     for best_fit in (False, True):
-        a = chunked(packed, best_fit=best_fit)
-        b = plain(packed, best_fit=best_fit)
+        a = solve(packed, best_fit=best_fit)
+        b = plan_ffd(packed, best_fit=best_fit)
         assert torch.equal(a.feasible, b.feasible)
         assert torch.equal(a.assignment, b.assignment)
+    assert ffd_kernels.LAUNCHES == before
 
 
 # --- validate_assignment ---------------------------------------------------

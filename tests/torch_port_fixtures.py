@@ -15,8 +15,11 @@ answers for it:
 - ``schedule``: ``make_schedule_planner(..., 32)``, the ``[32, 3+K]``
   drain-schedule matrix;
 - for ``CONTENDED`` also the lane-level answers of the union
-  (``union_feasible``/``union_assignment``) and of ``plan_repair`` alone
-  (``repair_feasible``/``repair_assignment``).
+  (``union_feasible``/``union_assignment``), of ``plan_repair`` alone
+  (``repair_feasible``/``repair_assignment``), of the carry-streamed
+  union ``with_repair_streamed(8, 4, carry_layout(pack))``
+  (``stream_union_*``) and of ``plan_repair_chunked(rounds=8,
+  spot_chunks=4, layout=carry_layout(pack))`` (``repair_chunked_*``).
 
 Configs 3 and 4 are uncontended: first-fit proves every valid lane, so
 repair never runs on them. ``CONTENDED`` is the quality suite's
@@ -152,11 +155,38 @@ def jax_lane_answers(packed) -> dict:
     }
 
 
+STREAM_CHUNKS = 4
+
+
+def jax_stream_lane_answers(packed) -> dict:
+    """The JAX package's per-lane answers of the carry-streamed union and
+    of the spot-chunked repair at ``STREAM_CHUNKS`` chunks and the
+    pack's guarded layout."""
+    import jax
+
+    from k8s_spot_rescheduler_tpu.solver.carry import carry_layout
+    from k8s_spot_rescheduler_tpu.solver.fallback import with_repair_streamed
+    from k8s_spot_rescheduler_tpu.solver.repair import plan_repair_chunked_jit
+
+    layout = carry_layout(packed)
+    union = jax.jit(with_repair_streamed(8, STREAM_CHUNKS, layout))(packed)
+    repair = plan_repair_chunked_jit(
+        packed, rounds=8, spot_chunks=STREAM_CHUNKS, layout=layout
+    )
+    return {
+        "stream_union_feasible": np.asarray(union.feasible, bool),
+        "stream_union_assignment": np.asarray(union.assignment, np.int32),
+        "repair_chunked_feasible": np.asarray(repair.feasible, bool),
+        "repair_chunked_assignment": np.asarray(repair.assignment, np.int32),
+    }
+
+
 def freeze(config_id, seed: int = 0) -> str:
     packed = pack_config(config_id, seed)
     answers = jax_answers(packed)
     if config_id == CONTENDED:
         answers.update(jax_lane_answers(packed))
+        answers.update(jax_stream_lane_answers(packed))
     os.makedirs(DATA_DIR, exist_ok=True)
     path = frozen_path(config_id, seed)
     save_npz(
