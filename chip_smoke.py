@@ -13,10 +13,19 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
 1. the card (name, power limit) and the kernel build, timed (one
    ``nvcc`` per source, all started together);
 2. kernels B1, B2 and B3 against their plain PyTorch versions on the
-   card, on the config-3 pack and on seeded random packs: feasible
-   vectors and assignments must be bit-identical; each kernel timed
-   (median over 20 launches after warm-up, CUDA events); B3 at the
-   spot chunks of the streamed union's four-chunk first-fit;
+   card, on the config-3 pack, on seeded random packs (one, S=9000,
+   with the spot statics read from device memory) and on the packs that
+   stress B1/B2's touched-spot overlay (``testing``): feasible
+   vectors and assignments must be bit-identical, B1/B2's raw outputs
+   too; the launch geometry (``ops/ffd_kernels.launch_geometry``:
+   lanes per block, warps per lane, where the statics live, shared
+   memory, blocks) printed, and every geometry of a sweep bit-identical
+   to the default one; each kernel timed on all lanes and on the staged
+   tick's 256-lane chunk: one wrapper call (``ms``: median of 20 after
+   warm-up, CUDA events around the call, host work included) and its
+   device time (``device_ms``: the mean over 20 calls of the time
+   torch.profiler records in the kernel, null when it records none); B3
+   at the spot chunks of the streamed union's four-chunk first-fit;
 3. the planning tick against the frozen answers: the drain schedule
    (horizon 32), the staged selection, a second tick through the
    resident delta cache after committing the schedule's first drain
@@ -86,6 +95,10 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events)."""
     for _ in range(warmup):
@@ -103,30 +116,25 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def random_packed(np, rng, C, K, S, R, W=1, A=2):
-    """A seeded random host pack exercising every predicate (integral
-    capacities drawn from a small range, so best-fit ties are common)."""
-    from k8s_spot_rescheduler_tpu_torch.models.tensors import PackedCluster
+def device_ms(torch, fn, kernel: str, reps: int = 20):
+    """Mean device milliseconds per call of ``fn`` spent in the kernels
+    whose name contains ``kernel`` (torch.profiler's CUDA activity over
+    ``reps`` calls after a warm-up), or None when the profiler records no
+    device time for them."""
+    from torch.profiler import ProfilerActivity, profile
 
-    def bits(shape, p):
-        return (
-            (np.uint32(1) << rng.integers(0, 32, shape).astype(np.uint32))
-            * (rng.random(shape) < p)
-        ).astype(np.uint32)
-
-    return PackedCluster(
-        slot_req=rng.integers(0, 60, (C, K, R)).astype(np.float32) * 10,
-        slot_valid=rng.random((C, K)) < 0.8,
-        slot_tol=rng.integers(0, 4, (C, K, W)).astype(np.uint32),
-        slot_aff=bits((C, K, A), 0.3),
-        cand_valid=rng.random((C,)) < 0.9,
-        spot_free=rng.integers(-10, 150, (S, R)).astype(np.float32) * 10,
-        spot_count=rng.integers(0, 5, (S,)).astype(np.int32),
-        spot_max_pods=rng.integers(1, 12, (S,)).astype(np.int32),
-        spot_taints=rng.integers(0, 4, (S, W)).astype(np.uint32),
-        spot_ok=rng.random((S,)) < 0.9,
-        spot_aff=bits((S, A), 0.3),
-    )
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += (getattr(ev, "device_time_total", None)
+                      or getattr(ev, "cuda_time_total", 0.0))
+    return total / reps / 1e3 if total > 0 else None
 
 
 def layout_packed(np, rng, layout, C, K, S, R):
@@ -136,13 +144,11 @@ def layout_packed(np, rng, layout, C, K, S, R):
     keep a lane's sum inside int16, and the affinity bits reach bit 7, 15
     or 31; an int16 count needs K >= 128."""
     from k8s_spot_rescheduler_tpu_torch.solver.carry import carry_layout
+    from k8s_spot_rescheduler_tpu_torch.testing import random_bits, random_pack
 
-    host = random_packed(np, rng, C, K, S, R)
+    host = random_pack(rng, C, K, S, R)
     top = {"uint8": 8, "uint16": 16, "uint32": 32}[layout.aff]
-    aff = (
-        (np.uint32(1) << rng.integers(0, top, (C, K, 2)).astype(np.uint32))
-        * (rng.random((C, K, 2)) < 0.3)
-    ).astype(np.uint32)
+    aff = random_bits(rng, (C, K, 2), top=top)
     aff[0, 0, 0] = np.uint32(1) << (top - 1)
     req = rng.integers(0, min(60, 3270 // K), (C, K, R)).astype(np.float32) * 10
     req[0, 0, 0] = {"int16": 100.0, "uint16": 40000.0,
@@ -208,6 +214,66 @@ def ffd_bound(np, packed, raw_chosen, best_fit: bool):
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = tested * per / H100_F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def geometry_line(fk, packed, best_fit: bool) -> str:
+    """B1/B2's launch geometry on ``packed``, as one phrase."""
+    g = fk.card_geometry(packed, best_fit)
+    return (f"{g.lanes_per_block} lanes x {g.warps_per_lane} warps a block, "
+            f"statics ({g.statics_bytes} B) in "
+            f"{'shared' if g.statics_in_smem else 'device'} memory, "
+            f"{g.lane_bytes} B a lane, {g.smem_bytes} B a block, "
+            f"{fk.grid_blocks(packed, g, best_fit)} blocks")
+
+
+def geometry_check(torch, fk, packed) -> int:
+    """B1 and B2 across lanes per block (L) and warps per lane (P), the
+    statics in shared memory, each launch bit-identical to the default
+    geometry's; returns the number of geometries checked."""
+    C, K, S, R, W, A = fk.shapes(packed)
+    n = 0
+    for best_fit, pairs in (
+        (False, [(L, 1) for L in (1, 4, 8, 16, 20, 32)]),
+        (True, [(1, 1), (8, 1), (32, 1), (1, 2), (4, 2), (15, 2), (1, 4),
+                (4, 4), (8, 4), (1, 8), (2, 8), (4, 8)]),
+    ):
+        want = fk.launch_raw(packed, best_fit)
+        for L, P in pairs:
+            got = fk.launch_raw(packed, best_fit,
+                                fk.fixed_geometry(K, S, R, W, A, L, P, True))
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"geometry L={L} P={P} best_fit={best_fit} changed the answer")
+            n += 1
+    return n
+
+
+def overlay_phase(np, torch, fk) -> list:
+    """B1/B2 (raw and masked) and B3 against the plain versions on the
+    packs that stress the overlay; returns their names."""
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import to_device
+    from k8s_spot_rescheduler_tpu_torch.solver.ffd import ffd_raw, plan_ffd
+    from k8s_spot_rescheduler_tpu_torch.testing import overlay_stress_packs
+
+    packs = overlay_stress_packs(0)
+    for name, host in packs.items():
+        dev = to_device(host, "cuda")
+        valid = dev.cand_valid
+        for bf in (False, True):
+            feasible, chosen = fk.launch_raw(dev, bf)
+            want_f, want_c = ffd_raw(dev, bf)
+            check(torch.equal(feasible, want_f)
+                  and torch.equal(chosen[valid], want_c[valid])
+                  and bool((chosen[~valid] == -1).all()),
+                  f"overlay pack {name}: raw kernel best_fit={bf} != plain")
+            check(same(torch, fk.plan_ffd_kernel(dev, best_fit=bf),
+                       plan_ffd(dev, best_fit=bf)) == 0,
+                  f"overlay pack {name}: kernel best_fit={bf} != plain")
+        chunk = max(1, host.spot_free.shape[0] // 3)
+        check(same(torch, fk.plan_ffd_chunked(dev, chunk),
+                   fk.plan_ffd_chunked_plain(dev, chunk)) == 0,
+              f"overlay pack {name}: B3 != its plain chunk loop")
+    torch.cuda.synchronize()
+    return list(packs)
 
 
 def union_breakdown(torch, fk, packed) -> str:
@@ -433,9 +499,17 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
         same(torch, b4, fk.plan_ffd_kernel(dev3, best_fit=True)),
     )
     check(err4 == 0, "config 3: B4 != plain streamed best-fit / B2")
-    ms = time_ms(torch, lambda: fk.plan_stream_bf_kernel(
-        dev3, carry_chunks=n4, layout=lay3))
-    b2_ms = time_ms(torch, lambda: fk.plan_ffd_kernel(dev3, best_fit=True))
+
+    def b4_call():
+        return fk.plan_stream_bf_kernel(dev3, carry_chunks=n4, layout=lay3)
+
+    def b2_call():
+        return fk.plan_ffd_kernel(dev3, best_fit=True)
+
+    ms = time_ms(torch, b4_call)
+    dev_ms = device_ms(torch, b4_call, "stream_bf_kernel")
+    b2_ms = time_ms(torch, b2_call)
+    b2_dev = device_ms(torch, b2_call, "ffd_kernel")
     plain_ms = time_ms(torch, lambda: plan_ffd_streamed(
         dev3, carry_chunks=n4, layout=lay3, best_fit=True), reps=5, warmup=1)
     bound_ms, bound_by = ffd_bound(np, host3, None, True)
@@ -443,13 +517,16 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
         name="B4", what="fused best-fit stream", route="cuda",
         source="k8s_spot_rescheduler_tpu_torch/ops/csrc/stream_bf.cu",
         replaces="k8s_spot_rescheduler_tpu/ops/pallas_ffd.py:191",
-        max_abs_err=err4, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None,
+        max_abs_err=err4, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
     )
     log(f"[5] config 3 layout {tuple(lay3)}: lane carry "
-        f"{fk.stream_state_bytes(lay3, R, A, S)} B (B1/B2 lane state "
-        f"{fk.library().ffd_state_bytes(R, A, S)} B); B4 {ms:.4f} ms kernel, "
-        f"B2 {b2_ms:.4f} ms in this run (B4/B2 {ms / b2_ms:.3f}), plain "
+        f"{fk.stream_state_bytes(lay3, R, A, S)} B (B2 lane state "
+        f"{fk.card_geometry(dev3, True).lane_bytes} B beside "
+        f"{fk.card_geometry(dev3, True).statics_bytes} B of shared statics); "
+        f"B4 {ms:.4f} ms a wrapper call ({fmt_ms(dev_ms)} on the device), "
+        f"B2 {b2_ms:.4f} ms in this run ({fmt_ms(b2_dev)} on the device; "
+        f"B4/B2 {ms / b2_ms:.3f}), plain "
         f"streamed best-fit ({n4} chunks) {plain_ms:.4f} ms, bound "
         f"{bound_ms:.6f} ms ({bound_by}) on {kind} [{card}]")
 
@@ -555,6 +632,7 @@ def main() -> int:
     )
     from k8s_spot_rescheduler_tpu_torch.solver.ffd import plan_ffd
     from k8s_spot_rescheduler_tpu_torch.solver.schedule import commit_step_host
+    from k8s_spot_rescheduler_tpu_torch.testing import random_pack
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -577,13 +655,14 @@ def main() -> int:
         f"{', '.join(os.path.relpath(p, here) for p in lib_paths.values())}; "
         f"max dynamic smem B1/B2 {lib.ffd_max_dynamic_smem(0)} B, "
         f"B4 {stream_lib.stream_bf_max_dynamic_smem(0)} B")
-    regs = [int(n) for n in re.findall(r"Used (\d+) registers", fk.BUILD_LOG)]
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
-                                         fk.BUILD_LOG)]
-    if regs:
-        log(f"[1] ptxas: {len(regs)} kernel instances, {min(regs)}-"
-            f"{max(regs)} registers, at most {max(spills, default=0)} B of "
-            f"spill stores")
+    for part in re.split(r"(?=^\[\w+\] )", fk.BUILD_LOG, flags=re.M):
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", part)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                             part)]
+        if regs:
+            log(f"[1] ptxas {part.split()[0]}: {len(regs)} kernel instances, "
+                f"{min(regs)}-{max(regs)} registers, at most "
+                f"{max(spills, default=0)} B of spill stores")
 
     data = os.path.join(here, "k8s_spot_rescheduler_tpu_torch", "data")
     host3, ans3 = load_npz(os.path.join(data, "config3_seed0.npz"))
@@ -593,8 +672,9 @@ def main() -> int:
     C, K, R = host3.slot_req.shape
     S = host3.spot_free.shape[0]
     log(f"[2] config 3 pack: C={C} K={K} S={S} R={R} "
-        f"W={host3.spot_taints.shape[1]} A={host3.spot_aff.shape[1]} "
-        f"lane state {lib.ffd_state_bytes(R, host3.spot_aff.shape[1], S)} B")
+        f"W={host3.spot_taints.shape[1]} A={host3.spot_aff.shape[1]}; "
+        f"B1 {geometry_line(fk, dev3, False)}; "
+        f"B2 {geometry_line(fk, dev3, True)}")
 
     # ---- phase 2: kernels against their plain versions ----------------
     rng = np.random.default_rng(0)
@@ -604,15 +684,15 @@ def main() -> int:
              int(rng.integers(1, 700)), int(rng.integers(1, 5)))
             if i < 20 else (300, 32, 9000 if i == 23 else 2560 + 37 * i, 4)
         )
-        host = random_packed(np, rng, *shape)
+        host = random_pack(rng, *shape)
         dev = to_device(host, "cuda")
         for bf in (False, True):
             check(same(torch, fk.plan_ffd_kernel(dev, best_fit=bf),
                        plan_ffd(dev, best_fit=bf)) == 0,
                   f"random pack {i} {shape}: kernel best_fit={bf} != plain")
         if shape[2] == 9000:
-            check(not fk.state_fits_smem(shape[3], 2, shape[2], 0),
-                  "the S=9000 pack should hold its lane state in device memory")
+            check(not fk.card_geometry(dev, True).statics_in_smem,
+                  "the S=9000 pack should read its statics from device memory")
         chunk = max(1, shape[2] // 3)
         check(same(torch, fk.plan_ffd_chunked(dev, chunk),
                    fk.plan_ffd_chunked_plain(dev, chunk)) == 0,
@@ -620,8 +700,13 @@ def main() -> int:
         check(same(torch, fk.plan_ffd_chunked(dev, chunk), plan_ffd(dev)) == 0,
               f"random pack {i}: B3 != plain first-fit")
     torch.cuda.synchronize()
-    log("[2] 24 seeded random packs (the last, S=9000, with the lane state "
-        "in device memory): B1, B2, B3 bit-identical to the plain versions")
+    log("[2] 24 seeded random packs (the last, S=9000, with the statics "
+        "read from device memory): B1, B2, B3 bit-identical to the plain "
+        "versions")
+    stress = overlay_phase(np, torch, fk)
+    log(f"[2] {len(stress)} overlay-stress packs ({', '.join(stress)}): B1 "
+        f"and B2 raw outputs, results and B3 bit-identical to the plain "
+        f"versions")
 
     plain_ff = plan_ffd(dev3)
     plain_bf = plan_ffd(dev3, best_fit=True)
@@ -658,15 +743,19 @@ def main() -> int:
     timings = {}
     for name, what, replaces, kern, plain, err, (bound_ms, bound_by) in specs:
         ms = time_ms(torch, kern)
+        dev_ms = device_ms(torch, kern, "ffd_kernel")
         plain_ms = time_ms(torch, plain, reps=5, warmup=1)
         timings[name] = dict(
             name=name, what=what, route="cuda",
             source="k8s_spot_rescheduler_tpu_torch/ops/csrc/ffd.cu",
-            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            replaces=replaces, max_abs_err=err, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None,
         )
-        log(f"[2] {name} ({what}): {ms:.4f} ms kernel, {plain_ms:.4f} ms "
-            f"plain, bound {bound_ms:.6f} ms ({bound_by}) on {kind} [{card}]")
+        log(f"[2] {name} ({what}): {ms:.4f} ms a wrapper call (CUDA "
+            f"events), {fmt_ms(dev_ms)} ms on the device (profiler), "
+            f"{plain_ms:.4f} ms plain, bound {bound_ms:.6f} ms ({bound_by}) "
+            f"on {kind} [{card}]")
 
     # ---- phase 3: the tick against the JAX package's frozen answers ---
     planner = TorchSolverPlanner(device="cuda")
@@ -733,6 +822,21 @@ def main() -> int:
         f"on {kind} [{card}]")
     log(f"[3] union passes, the 256-lane chunk at {lo}: "
         f"{union_breakdown(torch, fk, chunk3)} on {kind} [{card}]")
+    chunk_calls = {
+        "B1": lambda: fk.plan_ffd_kernel(chunk3),
+        "B2": lambda: fk.plan_ffd_kernel(chunk3, best_fit=True),
+        "B3": lambda: fk.plan_ffd_chunked(chunk3, b3_chunk),
+    }
+    log(f"[3] kernels on the 256-lane chunk at {lo}, ms a wrapper call "
+        f"(CUDA events) / device ms (profiler): "
+        + ", ".join(f"{k} {time_ms(torch, fn):.4f} / "
+                    f"{fmt_ms(device_ms(torch, fn, 'ffd_kernel'))}"
+                    for k, fn in chunk_calls.items())
+        + f" (B1 {geometry_line(fk, chunk3, False)}; "
+        f"B2 {geometry_line(fk, chunk3, True)}) on {kind} [{card}]")
+    n_geo = geometry_check(torch, fk, dev3) + geometry_check(torch, fk, chunk3)
+    log(f"[3] {n_geo} launch geometries on all lanes and on the chunk: B1/B2 "
+        f"bit-identical to the default geometry")
 
     tick_ms, sched_ms = [], []
     for _ in range(10):

@@ -6,7 +6,9 @@
   pallas_ffd.py:85`` ``_kernel`` with ``best_fit=False``.
 - **B2** ``plan_ffd_kernel(packed, best_fit=True)``: the same source
   with the best-fit election (least primary-resource slack, ties to the
-  lowest index); ``_kernel`` with ``best_fit=True``.
+  lowest index); ``_kernel`` with ``best_fit=True``. B1 and B2 share the
+  spot statics of a block and keep per lane only an overlay of the
+  spots it touched; ``launch_geometry`` picks their launch shape.
 - **B3** ``plan_ffd_chunked(packed, spot_chunk)``: first-fit over
   ordered spot chunks, one B1 launch per chunk with ``slot_valid``
   masked to the pods still unplaced and indices offset by the chunk's
@@ -41,10 +43,12 @@ against the signatures in the sources.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -102,8 +106,10 @@ LAUNCH_ARGS = (
     *((name, dtype) for name, dtype, _ in _FIELDS),
     ("feasible", torch.bool),
     ("chosen", torch.int32),
-    ("workspace", torch.int32),
-    *((dim, "int") for dim in ("C", "K", "R", "W", "A", "S", "best_fit")),
+    *((dim, "int") for dim in (
+        "C", "K", "R", "W", "A", "S", "best_fit", "lanes_per_block",
+        "warps_per_lane", "statics_in_smem", "smem_bytes",
+    )),
     ("stream", "stream"),
 )
 
@@ -125,6 +131,86 @@ COUNT_CODES = {"int8": 0, "int16": 1, "int32": 2}
 AFF_CODES = {"uint8": 0, "uint16": 1, "uint32": 2}
 
 _SMEM_LIMIT = {}  # (library name, device index) -> its max dynamic smem
+_SM_COUNT = {}  # device index -> its streaming multiprocessors
+
+H100_SMS = 132
+H100_SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into
+WARPS_PER_LANE = (8, 4, 2, 1)  # B2's choices, widest first
+MAX_NAMED_LANES = 15  # bar.sync ids 1..15: B2 lanes of more than one warp
+# the fewest warps a block takes when its lanes allow: the statics are
+# staged by every thread of the block
+STAGING_WARPS = 8
+
+
+class FfdGeometry(NamedTuple):
+    """How B1/B2 launch (``launch_geometry``): ``lanes_per_block`` lanes
+    of ``warps_per_lane`` warps share a block; the spot statics
+    (``statics_bytes``) sit in its shared memory or are read from device
+    memory; each lane takes ``lane_bytes`` (slot rows, overlay, touched
+    bitmap); ``smem_bytes`` is the block's dynamic shared memory."""
+
+    lanes_per_block: int
+    warps_per_lane: int
+    statics_in_smem: bool
+    smem_bytes: int
+    statics_bytes: int
+    lane_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.lanes_per_block * self.warps_per_lane
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(
+    C: int, K: int, S: int, R: int, W: int, A: int, smem_limit: int,
+    best_fit: bool, n_sm: int = H100_SMS,
+) -> FfdGeometry:
+    """The launch shape of B1 (``best_fit=False``) or B2 over C lanes of
+    K slots and S spots, for blocks of at most ``smem_limit`` bytes of
+    dynamic shared memory (``ffd_max_dynamic_smem``) on ``n_sm`` SMs.
+
+    B1 runs one warp per lane (``warps_per_lane`` 1); B2 the most of 8,
+    4, 2, 1 warps that has a window of 32 spots for each. A lane's state
+    is its slot rows (K*(R+W+A+1) words), its overlay (K*(R+A+2) words),
+    its touched bitmap (ceil(S/32) words) and B2's partials (4P words).
+    The statics (S*(R+1+W+A) words) go in shared memory when they fit
+    beside one lane, else the kernel reads them from device memory. Lanes
+    per block: as many as shared memory and 1,024 threads allow (at most
+    15 when a lane has several warps) and no more than C, but no more
+    than ceil(C/n_sm) either, so the lanes spread over every SM, unless
+    that leaves fewer than ``STAGING_WARPS`` warps to stage the statics.
+    Raises ``ValueError`` when one lane's state alone exceeds
+    ``smem_limit``."""
+    P = 1
+    if best_fit:
+        P = next(p for p in WARPS_PER_LANE if p <= max(1, -(-S // 32)))
+    one = fixed_geometry(K, S, R, W, A, 1, P, True)
+    if one.lane_bytes > smem_limit:
+        raise ValueError(
+            f"one lane of K={K} S={S} R={R} W={W} A={A} takes "
+            f"{one.lane_bytes} B of shared memory, past the {smem_limit} B "
+            f"a block may take"
+        )
+    in_smem = one.smem_bytes <= smem_limit
+    base = one.statics_bytes if in_smem else 0
+    spread = min(C, max(-(-C // n_sm), STAGING_WARPS // P))
+    L = min((smem_limit - base) // one.lane_bytes, 32 // P, spread)
+    if P > 1:
+        L = min(L, MAX_NAMED_LANES)
+    return fixed_geometry(K, S, R, W, A, max(1, L), P, in_smem)
+
+
+def fixed_geometry(K: int, S: int, R: int, W: int, A: int, lanes: int,
+                   warps: int, statics_in_smem: bool) -> FfdGeometry:
+    """The geometry of ``lanes`` lanes of ``warps`` warps a block with the
+    statics in shared memory or not, its bytes counted as the kernel
+    counts them (``ffd_launch`` rejects any other ``smem_bytes``)."""
+    lane_bytes = 4 * (K * (2 * R + W + 2 * A + 3) + -(-S // 32) + 4 * warps)
+    statics_bytes = 4 * S * (R + 1 + W + A)
+    base = statics_bytes if statics_in_smem else 0
+    return FfdGeometry(lanes, warps, statics_in_smem,
+                       base + lanes * lane_bytes, statics_bytes, lane_bytes)
 
 
 def reset_launch_counts() -> None:
@@ -197,9 +283,12 @@ def _bind(name: str, lib) -> None:
     smem = getattr(lib, f"{name}_max_dynamic_smem")
     smem.argtypes = [i32]
     smem.restype = i32
-    state = getattr(lib, f"{name}_state_bytes")
-    state.argtypes = [i32] * (3 if name == "ffd" else 6)
-    state.restype = ctypes.c_longlong
+    if name == "ffd":
+        lib.ffd_blocks.argtypes = [i32] * 9
+        lib.ffd_blocks.restype = i32
+    else:
+        lib.stream_bf_state_bytes.argtypes = [i32] * 6
+        lib.stream_bf_state_bytes.restype = ctypes.c_longlong
     error = getattr(lib, f"{name}_error_string")
     error.argtypes = [i32]
     error.restype = ctypes.c_char_p
@@ -248,12 +337,37 @@ def _smem_limit(name: str, device_index: int) -> int:
     return limit
 
 
-def state_fits_smem(R: int, A: int, S: int, device_index: int) -> bool:
-    """Whether one lane's B1/B2 state (R+1+A planes of S words) fits the
-    dynamic shared memory a block may take on the card."""
-    return library().ffd_state_bytes(R, A, S) <= _smem_limit(
-        "ffd", device_index
-    )
+def _sm_count(device_index: int) -> int:
+    count = _SM_COUNT.get(device_index)
+    if count is None:
+        count = torch.cuda.get_device_properties(
+            device_index
+        ).multi_processor_count
+        _SM_COUNT[device_index] = count
+    return count
+
+
+def card_geometry(packed, best_fit: bool) -> FfdGeometry:
+    """The geometry B1/B2 take for ``packed`` on its card."""
+    C, K, S, R, W, A = shapes(packed)
+    index = _device_index(packed.slot_req.device)
+    return launch_geometry(C, K, S, R, W, A, _smem_limit("ffd", index),
+                           best_fit, n_sm=_sm_count(index))
+
+
+def grid_blocks(packed, geometry: FfdGeometry, best_fit: bool) -> int:
+    """Blocks of the persistent grid a launch in ``geometry`` takes on
+    ``packed``'s card (``ffd_blocks``: CUDA's occupancy)."""
+    C, _, _, R, W, A = shapes(packed)
+    with torch.cuda.device(_device_index(packed.slot_req.device)):
+        blocks = library().ffd_blocks(
+            C, R, W, A, int(best_fit), geometry.lanes_per_block,
+            geometry.warps_per_lane, int(geometry.statics_in_smem),
+            geometry.smem_bytes,
+        )
+    if blocks < 0:
+        _raise_on(library(), "ffd", -blocks)
+    return blocks
 
 
 def _stream_codes(layout) -> tuple:
@@ -293,34 +407,32 @@ def _raise_on(lib, name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {message}")
 
 
-def launch_raw(packed, best_fit: bool):
+def launch_raw(packed, best_fit: bool, geometry: FfdGeometry | None = None):
     """One B1/B2 launch, uncounted: (feasible bool [C], chosen int32
     [C, K] with -1 for unplaced slots, NOT masked by lane feasibility;
-    lanes with cand_valid=0 report feasible=0 and chosen=-1). The lane
-    state lives in shared memory where it fits (``state_fits_smem``),
-    else in a device-memory workspace allocated here."""
+    lanes with cand_valid=0 report feasible=0 and chosen=-1). Launches in
+    ``geometry``, by default ``card_geometry(packed, best_fit)``; the
+    kernel allocates nothing."""
     _check(packed)
     lib = library()
     C, K, S, R, W, A = shapes(packed)
     dev = packed.slot_req.device
     index = _device_index(dev)
+    if geometry is None:
+        geometry = card_geometry(packed, best_fit)
     feasible = torch.empty((C,), dtype=torch.bool, device=dev)
     chosen = torch.empty((C, K), dtype=torch.int32, device=dev)
-    workspace = None
-    if not state_fits_smem(R, A, S, index):
-        # the lane state does not fit shared memory: hold it in device
-        # memory (same kernel source)
-        workspace = torch.empty(
-            (C * (R + 1 + A) * S,), dtype=torch.int32, device=dev
-        )
     with torch.cuda.device(index):
         args = {name: getattr(packed, name).data_ptr() for name, _, _ in _FIELDS}
         args.update(
             feasible=feasible.data_ptr(),
             chosen=chosen.data_ptr(),
-            workspace=None if workspace is None else workspace.data_ptr(),
             C=C, K=K, R=R, W=W, A=A, S=S,
             best_fit=int(best_fit),
+            lanes_per_block=geometry.lanes_per_block,
+            warps_per_lane=geometry.warps_per_lane,
+            statics_in_smem=int(geometry.statics_in_smem),
+            smem_bytes=geometry.smem_bytes,
             stream=torch.cuda.current_stream(index).cuda_stream,
         )
         err = lib.ffd_launch(*(args[name] for name, _ in LAUNCH_ARGS))

@@ -1,0 +1,119 @@
+"""Seeded host packs for holding the kernels against the plain versions.
+
+``random_pack`` is the one random-pack generator of the port's tests and
+``chip_smoke.py``. ``overlay_stress_packs`` builds on it the packs that
+stress kernels B1/B2's touched-spot overlay; each is a numpy
+``PackedCluster`` made from ``seed``, and the tests and ``chip_smoke.py``
+hold the kernels against ``solver/ffd.plan_ffd`` on every one of them:
+
+- ``one_spot``: many pods on one spot (large ``max_pods``, three spots),
+  so one overlay entry takes every commit;
+- ``k130``: K=130 slots, the int16-count packs' K, so a lane's overlay
+  and slot rows span five warp-widths;
+- ``ragged_spots``: S=97, a last window of one spot;
+- ``ragged_lanes``: C=2,567 lanes, not a multiple of any lane count a
+  block takes on an H100 (``launch_geometry``);
+- ``invalid_blocks``: two valid lanes of 600, so whole blocks hold only
+  invalid lanes;
+- ``later_window``: the only other fit lies in window 2, behind a spot of
+  window 0 that earlier slots touched until it is full (by room,
+  capacity or affinity, one lane each).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from k8s_spot_rescheduler_tpu_torch.models.tensors import PackedCluster
+
+
+def random_bits(rng, shape, p: float = 0.3, top: int = 32):
+    """uint32 words with one random bit below ``top`` set, each with
+    probability ``p``, else 0."""
+    return (
+        (np.uint32(1) << rng.integers(0, top, shape).astype(np.uint32))
+        * (rng.random(shape) < p)
+    ).astype(np.uint32)
+
+
+def random_pack(rng, C: int, K: int, S: int, R: int, W: int = 1, A: int = 2,
+                *, req_max: int = 60, max_pods: int = 12) -> PackedCluster:
+    """A random host pack over every predicate, drawn from the numpy
+    generator ``rng``, with integral capacities from a small range so
+    best-fit ties are common."""
+    return PackedCluster(
+        slot_req=rng.integers(0, req_max, (C, K, R)).astype(np.float32) * 10,
+        slot_valid=rng.random((C, K)) < 0.8,
+        slot_tol=rng.integers(0, 4, (C, K, W)).astype(np.uint32),
+        slot_aff=random_bits(rng, (C, K, A)),
+        cand_valid=rng.random((C,)) < 0.9,
+        spot_free=rng.integers(-10, 150, (S, R)).astype(np.float32) * 10,
+        spot_count=rng.integers(0, 5, (S,)).astype(np.int32),
+        spot_max_pods=rng.integers(1, max_pods, (S,)).astype(np.int32),
+        spot_taints=rng.integers(0, 4, (S, W)).astype(np.uint32),
+        spot_ok=rng.random((S,)) < 0.9,
+        spot_aff=random_bits(rng, (S, A)),
+    )
+
+
+def _one_spot(rng) -> PackedCluster:
+    C, K, S, R = 16, 64, 3, 2
+    base = random_pack(rng, C, K, S, R, req_max=8)
+    return base._replace(
+        slot_aff=np.zeros((C, K, 2), np.uint32),
+        slot_valid=rng.random((C, K)) < 0.95,
+        spot_free=np.array([[5000, 5000], [3000, 4000], [8000, 8000]],
+                           np.float32),
+        spot_count=np.array([0, 3, 1], np.int32),
+        spot_max_pods=np.array([1000, 1000, 40], np.int32),
+        spot_taints=np.zeros((S, 1), np.uint32),
+        spot_ok=np.ones((S,), bool),
+        spot_aff=np.zeros((S, 2), np.uint32),
+    )
+
+
+def _later_window() -> PackedCluster:
+    """Spot 5 (window 0) takes two pods of 50; spot 70 (window 2) takes
+    ten. Lane 0 fills spot 5 by room, lane 1 by capacity (requests of
+    60), lane 2 by affinity (every slot carries bit 1), lane 3 by room
+    again with small pods."""
+    C, K, S, R, W, A = 4, 4, 96, 2, 1, 2
+    free = np.zeros((S, R), np.float32)
+    free[5] = 100
+    free[70] = 500
+    max_pods = np.full((S,), 10, np.int32)
+    max_pods[5] = 2
+    req = np.full((C, K, R), 50, np.float32)
+    req[1] = 60
+    req[2:] = 10
+    aff = np.zeros((C, K, A), np.uint32)
+    aff[2, :, 0] = 2
+    return PackedCluster(
+        slot_req=req,
+        slot_valid=np.ones((C, K), bool),
+        slot_tol=np.zeros((C, K, W), np.uint32),
+        slot_aff=aff,
+        cand_valid=np.ones((C,), bool),
+        spot_free=free,
+        spot_count=np.zeros((S,), np.int32),
+        spot_max_pods=max_pods,
+        spot_taints=np.zeros((S, W), np.uint32),
+        spot_ok=np.ones((S,), bool),
+        spot_aff=np.zeros((S, A), np.uint32),
+    )
+
+
+def overlay_stress_packs(seed: int = 0) -> dict:
+    """{name: host pack} of the overlay's corner cases (module doc)."""
+    rng = np.random.default_rng(seed)
+    invalid = random_pack(rng, 600, 8, 300, 4)
+    cand = np.zeros((600,), bool)
+    cand[[0, 599]] = True
+    return {
+        "one_spot": _one_spot(rng),
+        "k130": random_pack(rng, 24, 130, 200, 4, req_max=24, max_pods=40),
+        "ragged_spots": random_pack(rng, 40, 8, 97, 3),
+        "ragged_lanes": random_pack(rng, 2567, 8, 300, 4),
+        "invalid_blocks": invalid._replace(cand_valid=cand),
+        "later_window": _later_window(),
+    }

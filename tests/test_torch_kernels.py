@@ -26,42 +26,27 @@ from k8s_spot_rescheduler_tpu_torch.solver.carry import (
     carry_layout,
 )
 from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
+    ffd_raw,
     plan_ffd,
     plan_ffd_streamed,
+)
+from k8s_spot_rescheduler_tpu_torch.testing import (
+    overlay_stress_packs,
+    random_bits,
+    random_pack,
 )
 
 torch.set_num_threads(1)
 
 
 def _host_pack(seed: int, S: int = 0, R: int = 0) -> PackedCluster:
-    """A seeded random host pack over every predicate, with integral
-    capacities from a small range so best-fit ties are common."""
+    """A seeded random host pack of random shape (``random_pack``)."""
     rng = np.random.default_rng(seed)
     C = int(rng.integers(1, 24))
     K = int(rng.integers(1, 9))
     S = S or int(rng.integers(1, 300))
     R = R or int(rng.integers(1, 5))
-    W, A = 1, 2
-
-    def bits(shape):
-        return (
-            (np.uint32(1) << rng.integers(0, 32, shape).astype(np.uint32))
-            * (rng.random(shape) < 0.3)
-        ).astype(np.uint32)
-
-    return PackedCluster(
-        slot_req=rng.integers(0, 60, (C, K, R)).astype(np.float32) * 10,
-        slot_valid=rng.random((C, K)) < 0.8,
-        slot_tol=rng.integers(0, 4, (C, K, W)).astype(np.uint32),
-        slot_aff=bits((C, K, A)),
-        cand_valid=rng.random((C,)) < 0.9,
-        spot_free=rng.integers(-10, 150, (S, R)).astype(np.float32) * 10,
-        spot_count=rng.integers(0, 5, (S,)).astype(np.int32),
-        spot_max_pods=rng.integers(1, 12, (S,)).astype(np.int32),
-        spot_taints=rng.integers(0, 4, (S, W)).astype(np.uint32),
-        spot_ok=rng.random((S,)) < 0.9,
-        spot_aff=bits((S, A)),
-    )
+    return random_pack(rng, C, K, S, R)
 
 
 def _layout_pack(
@@ -78,10 +63,7 @@ def _layout_pack(
     S = base.spot_free.shape[0]
     W, A = 1, 2
     top = {"uint8": 8, "uint16": 16, "uint32": 32}[layout.aff]
-    slot_aff = (
-        (np.uint32(1) << rng.integers(0, top, (C, K, A)).astype(np.uint32))
-        * (rng.random((C, K, A)) < 0.3)
-    ).astype(np.uint32)
+    slot_aff = random_bits(rng, (C, K, A), top=top)
     slot_aff[0, 0, 0] = np.uint32(1) << (top - 1)
     # K * the largest request stays inside int16
     slot_req = rng.integers(0, 24 if K > 12 else 60, (C, K, R)).astype(
@@ -205,6 +187,106 @@ def test_build_hashes_every_source(tmp_path, monkeypatch):
     assert len(set(after.values())) == len(sources)
 
 
+# (C, K, S, R, W, A) of the geometry cases: config 3, contended, S=9000
+# at R=4, K=130, S=1, and a K whose one lane exceeds shared memory
+GEOMETRY_SHAPES = {
+    "config3": (2560, 32, 2560, 4, 1, 2),
+    "contended": (512, 8, 1152, 2, 17, 2),
+    "s9000": (300, 32, 9000, 4, 1, 2),
+    "k130": (24, 130, 200, 4, 1, 2),
+    "s1": (7, 5, 1, 1, 1, 2),
+    "impossible_k": (8, 5000, 2560, 4, 1, 2),
+}
+
+
+@pytest.mark.parametrize("best_fit", [False, True], ids=["B1", "B2"])
+@pytest.mark.parametrize("case", GEOMETRY_SHAPES, ids=str)
+def test_launch_geometry(case, best_fit):
+    """The launch shape at an H100's limits: threads and shared memory
+    within the card's, one warp per lane for first-fit, the statics
+    staged where they fit and read from device memory past that, and a
+    ValueError where one lane's state alone is too large."""
+    C, K, S, R, W, A = GEOMETRY_SHAPES[case]
+    limit = ffd_kernels.H100_SMEM_LIMIT
+    if case == "impossible_k":
+        with pytest.raises(ValueError, match="past the"):
+            ffd_kernels.launch_geometry(C, K, S, R, W, A, limit, best_fit)
+        return
+    g = ffd_kernels.launch_geometry(C, K, S, R, W, A, limit, best_fit)
+    L, P = g.lanes_per_block, g.warps_per_lane
+    assert 1 <= L and g.threads == 32 * L * P <= 1024
+    assert g.smem_bytes <= limit
+    assert g.lane_bytes == 4 * (K * (2 * R + W + 2 * A + 3) + -(-S // 32) + 4 * P)
+    assert g.statics_bytes == 4 * S * (R + 1 + W + A)
+    staged = g.statics_bytes if g.statics_in_smem else 0
+    assert g.smem_bytes == staged + L * g.lane_bytes
+    # lanes spread over the SMs, unless a block would stage the statics
+    # with fewer warps than STAGING_WARPS
+    assert L <= min(C, max(-(-C // ffd_kernels.H100_SMS),
+                           ffd_kernels.STAGING_WARPS // P))
+    assert L * P >= min(ffd_kernels.STAGING_WARPS, C * P)
+    if best_fit:
+        assert P in (1, 2, 4, 8) and P <= max(1, -(-S // 32))
+        assert P == 1 or L <= ffd_kernels.MAX_NAMED_LANES
+    else:
+        assert P == 1
+    assert g.statics_in_smem == (case != "s9000")
+    if case == "config3":
+        assert L >= 4
+    if case == "s1":
+        assert (L, P) == (C, 1)
+
+
+def test_launch_geometry_grows_lanes_until_shared_memory_binds():
+    """With few SMs to spread over, lanes per block grow until threads
+    or shared memory stop them, and the statics keep their place."""
+    limit = ffd_kernels.H100_SMEM_LIMIT
+    g = ffd_kernels.launch_geometry(2560, 32, 2560, 4, 1, 2, limit, False,
+                                    n_sm=1)
+    assert g.lanes_per_block == 32  # 1,024 threads bind first
+    g = ffd_kernels.launch_geometry(2560, 500, 2560, 4, 1, 2, limit, False,
+                                    n_sm=1)
+    assert g.statics_in_smem
+    assert g.smem_bytes + g.lane_bytes > limit >= g.smem_bytes  # smem binds
+
+
+STRESS = overlay_stress_packs(0)
+
+
+@pytest.mark.parametrize("name", list(STRESS), ids=str)
+def test_overlay_stress_packs_stress_what_they_name(name):
+    """Each stress pack has the shape and the placements it is named
+    for (plain first-fit and best-fit on the CPU)."""
+    host = STRESS[name]
+    packed = to_device(host, "cpu")
+    C, K, R = host.slot_req.shape
+    S = host.spot_free.shape[0]
+    ff = plan_ffd(packed)
+    bf = plan_ffd(packed, best_fit=True)
+    assert int(ff.feasible.sum()) > 0 and int(bf.feasible.sum()) > 0
+    if name == "one_spot":
+        placed = ff.assignment[ff.assignment >= 0]
+        assert S == 3 and bool((placed == 0).all()) and placed.numel() > K
+    elif name == "k130":
+        assert K == 130
+    elif name == "ragged_spots":
+        assert S % 32 == 1
+    elif name == "ragged_lanes":
+        for best_fit in (False, True):
+            g = ffd_kernels.launch_geometry(
+                C, K, S, R, 1, 2, ffd_kernels.H100_SMEM_LIMIT, best_fit
+            )
+            assert C % g.lanes_per_block != 0
+    elif name == "invalid_blocks":
+        assert int(host.cand_valid.sum()) == 2 and C == 600
+    elif name == "later_window":
+        want = [[5, 5, 70, 70], [5, 70, 70, 70], [-1, -1, -1, -1],
+                [5, 5, 70, 70]]
+        assert ff.assignment.tolist() == want
+        assert bf.assignment.tolist() == want
+        assert ff.feasible.tolist() == [True, True, False, True]
+
+
 @pytest.mark.parametrize("layout", LAYOUTS[::5], ids=str)
 def test_stream_wrappers_take_the_plain_version_on_cpu_tensors(layout):
     packed = to_device(_layout_pack(3, layout), "cpu")
@@ -261,14 +343,59 @@ def test_chunked_kernel_matches_plain_on_the_card(cuda_device, chunk):
 @pytest.mark.cuda
 @pytest.mark.parametrize("best_fit", [False, True])
 def test_lane_state_past_shared_memory_on_the_card(cuda_device, best_fit):
-    """R=4, A=2 and S=9000 make 252,000 B of lane state, past a
-    block's shared memory: the kernel keeps it in device memory."""
+    """R=4, W=1, A=2 and S=9000 make 288,000 B of spot statics, past a
+    block's shared memory: the kernel reads them from device memory,
+    while each lane's overlay stays in shared memory."""
     packed = to_device(_host_pack(7, S=9000, R=4), cuda_device)
-    device_index = torch.cuda.current_device()
-    assert not ffd_kernels.state_fits_smem(4, 2, 9000, device_index)
+    assert not ffd_kernels.card_geometry(packed, best_fit).statics_in_smem
     got = ffd_kernels.plan_ffd_kernel(packed, best_fit=best_fit)
     torch.cuda.synchronize()
     _assert_same(got, plan_ffd(packed, best_fit=best_fit))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("best_fit", [False, True], ids=["B1", "B2"])
+@pytest.mark.parametrize("name", list(STRESS), ids=str)
+def test_overlay_stress_on_the_card(cuda_device, name, best_fit):
+    """B1/B2's raw outputs (placements after a failed slot included) and
+    results are bit-identical to the plain version on each pack that
+    stresses the overlay."""
+    packed = to_device(STRESS[name], cuda_device)
+    if name == "ragged_lanes":
+        g = ffd_kernels.card_geometry(packed, best_fit)
+        assert packed.slot_req.shape[0] % g.lanes_per_block != 0
+    feasible, chosen = ffd_kernels.launch_raw(packed, best_fit)
+    want_feasible, want_chosen = ffd_raw(packed, best_fit)
+    valid = packed.cand_valid
+    torch.cuda.synchronize()
+    assert torch.equal(feasible, want_feasible)
+    assert torch.equal(chosen[valid], want_chosen[valid])
+    assert bool((chosen[~valid] == -1).all())
+    _assert_same(ffd_kernels.plan_ffd_kernel(packed, best_fit=best_fit),
+                 plan_ffd(packed, best_fit=best_fit))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "best_fit, warps",
+    [(False, 1), (True, 1), (True, 2), (True, 4), (True, 8)],
+    ids=["B1", "B2-P1", "B2-P2", "B2-P4", "B2-P8"],
+)
+def test_every_geometry_gives_the_same_answer(cuda_device, best_fit, warps):
+    """Lanes per block, warps per lane and the statics' place change
+    how the kernel runs, never what it computes (first-fit runs one warp
+    per lane)."""
+    packed = to_device(STRESS["k130"], cuda_device)
+    C, K, S, R, W, A = 24, 130, 200, 4, 1, 2
+    want = ffd_raw(packed, best_fit)
+    for L in (1, 3):
+        for in_smem in (True, False):
+            g = ffd_kernels.fixed_geometry(K, S, R, W, A, L, warps, in_smem)
+            feasible, chosen = ffd_kernels.launch_raw(packed, best_fit, g)
+            torch.cuda.synchronize()
+            assert torch.equal(feasible, want[0])
+            valid = packed.cand_valid
+            assert torch.equal(chosen[valid], want[1][valid])
 
 
 @pytest.mark.cuda
