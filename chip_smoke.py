@@ -15,9 +15,10 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
 2. kernels B1, B2 and B3 against their plain PyTorch versions on the
    card, on the config-3 pack, on seeded random packs (one, S=9000,
    with the spot statics read from device memory) and on the packs that
-   stress B1/B2's touched-spot overlay (``testing``): feasible
+   stress the touched-spot overlay (``testing``): feasible
    vectors and assignments must be bit-identical, B1/B2's raw outputs
-   too; the launch geometry (``ops/ffd_kernels.launch_geometry``:
+   too; B3 launched once per call, at chunk widths 1, 2, 3, 64, 256,
+   640 and 866 and at S=24000 past shared memory; the launch geometry (``ops/ffd_kernels.launch_geometry``:
    lanes per block, warps per lane, where the statics live, shared
    memory, blocks) printed, and every geometry of a sweep bit-identical
    to the default one; each kernel timed on all lanes and on the staged
@@ -40,16 +41,19 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    the JAX package's, and the contended tick is timed;
 5. the carry-streamed narrow union (``union_program(8, carry_chunks=n,
    carry_layout=carry_layout(pack))`` with the kernels on: first-fit
-   B3 over n spot chunks, best-fit B4 over the narrow delta carry,
-   spot-chunked repair): B4 against its plain version and B2 on seeded
-   random packs covering every carry dtype and the device-memory
-   workspace, bit-identical; then for n in (2, 4) on configs 3, 4 and
-   contended, the fused and staged selections and the 32-step schedule
-   equal the frozen JAX answers, and on contended the union's and
+   B3 in one launch over n spot chunks, best-fit B4 with the narrow
+   delta carry in its overlay, spot-chunked repair): B4 against its
+   plain version and B2 on seeded random packs covering every carry
+   dtype, on the stress packs with their own layouts, and at S=24000
+   with the statics in device memory and the overlay in shared memory,
+   bit-identical; then for n in (2, 4) on configs 3, 4 and contended,
+   the fused and staged selections and the 32-step schedule equal the
+   frozen JAX answers, and on contended the union's and
    ``plan_repair_chunked``'s lanes equal the JAX package's streamed
-   answers; the launch counts of this path must show B3 and B4 ran.
-   B4 is timed at config 3 beside its plain version and bound, with the
-   union's passes and the streamed tick and schedule.
+   answers; the launch counts of this path must show B3 and B4 ran, B3
+   once per first-fit call. B4 is timed at config 3 beside B2, its
+   plain version and bound, with the union's passes and the streamed
+   tick and schedule.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -70,6 +74,11 @@ import time
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM
 STREAM_CHUNKS = (2, 4)  # carry chunks of the streamed union's path
+B3_WIDTHS = (1, 2, 3, 64, 256, 640, 866)  # B3's chunk widths checked
+# substrings of the kernels' names in the profiler: B1-B3, then B4 (this
+# tree's, then the older trees' that ffd_timing.py --tree times)
+FFD_KERNELS = ("AbsOverlay", "ffd_kernel")
+STREAM_KERNELS = ("DeltaOverlay", "stream_bf_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -116,11 +125,13 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel: str, reps: int = 20):
+def device_ms(torch, fn, kernel, reps: int = 20):
     """Mean device milliseconds per call of ``fn`` spent in the kernels
-    whose name contains ``kernel`` (torch.profiler's CUDA activity over
-    ``reps`` calls after a warm-up), or None when the profiler records no
-    device time for them."""
+    whose name contains ``kernel`` (a string, or a tuple of which any
+    one) (torch.profiler's CUDA activity over ``reps`` calls after a
+    warm-up), or None when the profiler records no device time for
+    them."""
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -131,7 +142,7 @@ def device_ms(torch, fn, kernel: str, reps: int = 20):
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if kernel in ev.key:
+        if any(name in ev.key for name in names):
             total += (getattr(ev, "device_time_total", None)
                       or getattr(ev, "cuda_time_total", 0.0))
     return total / reps / 1e3 if total > 0 else None
@@ -216,14 +227,60 @@ def ffd_bound(np, packed, raw_chosen, best_fit: bool):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def geometry_line(fk, packed, best_fit: bool) -> str:
-    """B1/B2's launch geometry on ``packed``, as one phrase."""
-    g = fk.card_geometry(packed, best_fit)
+def geometry_line(fk, packed, best_fit: bool, **kw) -> str:
+    """B1/B2's launch geometry on ``packed`` (B3's with ``spot_chunk=``,
+    B4's with ``layout=``), as one phrase."""
+    g = fk.card_geometry(packed, best_fit, **kw)
+    layout = kw.get("layout")
     return (f"{g.lanes_per_block} lanes x {g.warps_per_lane} warps a block, "
             f"statics ({g.statics_bytes} B) in "
             f"{'shared' if g.statics_in_smem else 'device'} memory, "
             f"{g.lane_bytes} B a lane, {g.smem_bytes} B a block, "
-            f"{fk.grid_blocks(packed, g, best_fit)} blocks")
+            f"{fk.grid_blocks(packed, g, best_fit, layout)} blocks")
+
+
+def b3_once(torch, fk, packed, chunk: int):
+    """B3 on ``packed`` at ``chunk``, checked to launch once."""
+    before = fk.LAUNCHES["B3"]
+    res = fk.plan_ffd_chunked(packed, chunk)
+    check(fk.LAUNCHES["B3"] == before + 1,
+          f"B3 at chunk {chunk} launched {fk.LAUNCHES['B3'] - before} times")
+    return res
+
+
+def chunk_phase(np, torch, fk) -> str:
+    """B3 against its plain chunk loop at every width of ``B3_WIDTHS``
+    (1-64 on S=300, 256-866 on S=2597, whose 866-spot chunks leave a
+    last chunk of 865) and at S=24000 past shared memory (chunks of
+    12000 read from device memory, of 6000 staged); each call one
+    launch. Returns the line of what was checked."""
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import to_device
+    from k8s_spot_rescheduler_tpu_torch.testing import random_pack
+
+    rng = np.random.default_rng(11)
+    small = to_device(random_pack(rng, 40, 8, 300, 4), "cuda")
+    large = to_device(random_pack(rng, 300, 32, 2597, 4), "cuda")
+    huge = to_device(random_pack(rng, 64, 32, 24000, 4), "cuda")
+    cases = [(small if w <= 64 else large, w) for w in B3_WIDTHS]
+    cases += [(huge, 12000), (huge, 6000)]
+    placed = []
+    for dev, w in cases:
+        g = fk.card_geometry(dev, False, spot_chunk=w)
+        if dev is huge:
+            check(g.statics_in_smem == (w == 6000),
+                  f"S=24000 chunk {w}: statics in the wrong memory")
+        raw_f, raw_c = fk.launch_raw(dev, False, spot_chunk=w)
+        got = b3_once(torch, fk, dev, w)
+        want = fk.plan_ffd_chunked_plain(dev, w)
+        check(same(torch, got, want) == 0,
+              f"B3 at chunk {w} (S={dev.spot_free.shape[0]}) != plain")
+        check(torch.equal(raw_f, got.feasible), f"B3 raw at chunk {w}")
+        placed.append(int((raw_c >= 0).sum()))
+    torch.cuda.synchronize()
+    return (f"[2] B3 bit-identical to its plain chunk loop, one launch a "
+            f"call, at chunk widths {', '.join(map(str, B3_WIDTHS))} (S=300 "
+            f"/ 2597) and 12000 / 6000 at S=24000 (statics in device / "
+            f"shared memory); pods placed {placed}")
 
 
 def geometry_check(torch, fk, packed) -> int:
@@ -269,7 +326,7 @@ def overlay_phase(np, torch, fk) -> list:
                        plan_ffd(dev, best_fit=bf)) == 0,
                   f"overlay pack {name}: kernel best_fit={bf} != plain")
         chunk = max(1, host.spot_free.shape[0] // 3)
-        check(same(torch, fk.plan_ffd_chunked(dev, chunk),
+        check(same(torch, b3_once(torch, fk, dev, chunk),
                    fk.plan_ffd_chunked_plain(dev, chunk)) == 0,
               f"overlay pack {name}: B3 != its plain chunk loop")
     torch.cuda.synchronize()
@@ -446,6 +503,7 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
         StagedPlanner,
         make_fused_planner,
     )
+    from k8s_spot_rescheduler_tpu_torch.testing import overlay_stress_packs
 
     # ---- B4 against its plain version, every carry dtype ---------------
     layouts = [
@@ -466,23 +524,34 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
     cases += [(k32[4 * i % len(k32)], (300, 32, 2560 + 37 * i, 4))
               for i in range(5)]
     cases.append((narrow3, (64, 32, 24000, 4)))  # past shared memory
-    for i, (lay, shape) in enumerate(cases):
-        dev = to_device(layout_packed(np, rng, lay, *shape), "cuda")
+    stress = overlay_stress_packs(0)
+    packs = [(lay, layout_packed(np, rng, lay, *shape), f"random pack {i} "
+              f"{shape}") for i, (lay, shape) in enumerate(cases)]
+    packs += [(carry_layout(host), host, f"stress pack {name}")
+              for name, host in stress.items()]
+    big_line = ""
+    for lay, host, what in packs:
+        dev = to_device(host, "cuda")
         got = fk.plan_stream_bf_kernel(dev, carry_chunks=2, layout=lay)
         for n in (1, 3):
             check(same(torch, got, plan_ffd_streamed(
                 dev, carry_chunks=n, layout=lay, best_fit=True)) == 0,
-                f"random pack {i} {shape} {lay}: B4 != plain (n={n})")
+                f"{what} {lay}: B4 != plain (n={n})")
         check(same(torch, got, fk.plan_ffd_kernel(dev, best_fit=True)) == 0,
-              f"random pack {i} {shape} {lay}: B4 != B2")
-        if shape[2] == 24000:
-            check(not fk.stream_state_fits_smem(lay, 4, 2, 24000, 0),
-                  "the S=24000 pack should hold its carry in device memory")
+              f"{what} {lay}: B4 != B2")
+        if host.spot_free.shape[0] == 24000:
+            g = fk.card_geometry(dev, True, layout=lay)
+            check(not g.statics_in_smem
+                  and g.smem_bytes == g.lanes_per_block * g.lane_bytes,
+                  "the S=24000 pack should read its statics from device "
+                  "memory and hold only its overlay in shared memory")
+            big_line = geometry_line(fk, dev, True, layout=lay)
     torch.cuda.synchronize()
     log(f"[5] {len(cases)} seeded random packs (all {len(layouts)} carry "
-        f"dtype combinations; the last, S=24000 at config 3's layout, "
-        f"with the carry in device memory): B4 bit-identical to the "
-        f"plain streamed best-fit and to B2")
+        f"dtype combinations; the last, S=24000 at config 3's layout: "
+        f"{big_line}) and {len(stress)} stress packs ({', '.join(stress)}) "
+        f"at their own layouts: B4 bit-identical to the plain streamed "
+        f"best-fit and to B2")
 
     # ---- B4 at config 3: time, plain time, bound ------------------------
     _, host3, _ = problems[0]
@@ -507,9 +576,9 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
         return fk.plan_ffd_kernel(dev3, best_fit=True)
 
     ms = time_ms(torch, b4_call)
-    dev_ms = device_ms(torch, b4_call, "stream_bf_kernel")
+    dev_ms = device_ms(torch, b4_call, STREAM_KERNELS)
     b2_ms = time_ms(torch, b2_call)
-    b2_dev = device_ms(torch, b2_call, "ffd_kernel")
+    b2_dev = device_ms(torch, b2_call, FFD_KERNELS)
     plain_ms = time_ms(torch, lambda: plan_ffd_streamed(
         dev3, carry_chunks=n4, layout=lay3, best_fit=True), reps=5, warmup=1)
     bound_ms, bound_by = ffd_bound(np, host3, None, True)
@@ -520,13 +589,14 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
         max_abs_err=err4, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
     )
-    log(f"[5] config 3 layout {tuple(lay3)}: lane carry "
-        f"{fk.stream_state_bytes(lay3, R, A, S)} B (B2 lane state "
-        f"{fk.card_geometry(dev3, True).lane_bytes} B beside "
-        f"{fk.card_geometry(dev3, True).statics_bytes} B of shared statics); "
+    ratio = ("not measured" if dev_ms is None or b2_dev is None
+             else f"{dev_ms / b2_dev:.3f}")
+    log(f"[5] config 3 layout {tuple(lay3)}: B4 "
+        f"{geometry_line(fk, dev3, True, layout=lay3)} (B2 "
+        f"{fk.card_geometry(dev3, True).lane_bytes} B a lane); "
         f"B4 {ms:.4f} ms a wrapper call ({fmt_ms(dev_ms)} on the device), "
         f"B2 {b2_ms:.4f} ms in this run ({fmt_ms(b2_dev)} on the device; "
-        f"B4/B2 {ms / b2_ms:.3f}), plain "
+        f"B4/B2 device {ratio}), plain "
         f"streamed best-fit ({n4} chunks) {plain_ms:.4f} ms, bound "
         f"{bound_ms:.6f} ms ({bound_by}) on {kind} [{card}]")
 
@@ -536,14 +606,28 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
                 and np.array_equal(res.assignment.cpu().numpy(),
                                    ans[f"{prefix}_assignment"]))
 
+    # count the union's first-fit calls: B3 launches once per call
+    ff_calls = [0]
+    plan_stream_ff_kernel = fk.plan_stream_ff_kernel
+
+    def counted_ff(*args, **kwargs):
+        ff_calls[0] += 1
+        return plan_stream_ff_kernel(*args, **kwargs)
+
     totals = {name: 0 for name in fk.LAUNCHES}
+    totals["first-fit calls"] = 0
     for name, host, ans in problems:
         dev = to_device(host, "cuda")
         lay = carry_layout(host)
         for n in STREAM_CHUNKS:
-            union = union_program(8, carry_chunks=n, carry_layout=lay,
-                                  use_kernel=True)
+            fk.plan_stream_ff_kernel = counted_ff  # bound by the union
+            try:
+                union = union_program(8, carry_chunks=n, carry_layout=lay,
+                                      use_kernel=True)
+            finally:
+                fk.plan_stream_ff_kernel = plan_stream_ff_kernel
             fk.reset_launch_counts()
+            ff_calls[0] = 0
             sel_vec = make_fused_planner(union)(dev).cpu().numpy()
             sel, _ = StagedPlanner(union, chunk_lanes=256,
                                    early_exit=True).solve(dev)
@@ -552,9 +636,13 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
             launches = dict(fk.LAUNCHES)
             for kernel, count in launches.items():
                 totals[kernel] += count
+            totals["first-fit calls"] += ff_calls[0]
             check(launches["B3"] > 0 and launches["B4"] > 0,
                   f"{name} n={n}: B3/B4 not launched on the streamed union "
                   f"{launches}")
+            check(launches["B3"] == ff_calls[0],
+                  f"{name} n={n}: {launches['B3']} B3 launches for "
+                  f"{ff_calls[0]} first-fit calls")
             check(np.array_equal(sel_vec, ans["selection"]),
                   f"{name} n={n}: streamed selection != the JAX package's")
             staged = np.concatenate([[sel.index, int(sel.found),
@@ -577,7 +665,8 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
                     extra += ", plan_repair_chunked lanes == JAX"
             log(f"[5] {name} layout {tuple(lay)} n={n}: selection, staged "
                 f"selection, 32-step schedule == JAX{extra}; launches "
-                f"{launches}")
+                f"{launches}, one B3 launch for each of {ff_calls[0]} "
+                f"first-fit calls")
 
     union4 = union_program(8, carry_chunks=n4, carry_layout=lay3,
                            use_kernel=True)
@@ -694,10 +783,10 @@ def main() -> int:
             check(not fk.card_geometry(dev, True).statics_in_smem,
                   "the S=9000 pack should read its statics from device memory")
         chunk = max(1, shape[2] // 3)
-        check(same(torch, fk.plan_ffd_chunked(dev, chunk),
-                   fk.plan_ffd_chunked_plain(dev, chunk)) == 0,
+        b3 = b3_once(torch, fk, dev, chunk)
+        check(same(torch, b3, fk.plan_ffd_chunked_plain(dev, chunk)) == 0,
               f"random pack {i}: B3 != its plain chunk loop")
-        check(same(torch, fk.plan_ffd_chunked(dev, chunk), plan_ffd(dev)) == 0,
+        check(same(torch, b3, plan_ffd(dev)) == 0,
               f"random pack {i}: B3 != plain first-fit")
     torch.cuda.synchronize()
     log("[2] 24 seeded random packs (the last, S=9000, with the statics "
@@ -707,13 +796,14 @@ def main() -> int:
     log(f"[2] {len(stress)} overlay-stress packs ({', '.join(stress)}): B1 "
         f"and B2 raw outputs, results and B3 bit-identical to the plain "
         f"versions")
+    log(chunk_phase(np, torch, fk))
 
     plain_ff = plan_ffd(dev3)
     plain_bf = plan_ffd(dev3, best_fit=True)
     b1 = fk.plan_ffd_kernel(dev3)
     b2 = fk.plan_ffd_kernel(dev3, best_fit=True)
     b3_chunk = -(-S // STREAM_CHUNKS[-1])  # the streamed union's chunks
-    b3 = fk.plan_ffd_chunked(dev3, b3_chunk)
+    b3 = b3_once(torch, fk, dev3, b3_chunk)
     b3_plain = fk.plan_ffd_chunked_plain(dev3, b3_chunk)
     err1 = same(torch, b1, plain_ff)
     err2 = same(torch, b2, plain_bf)
@@ -724,7 +814,8 @@ def main() -> int:
     _, raw_ff = fk.launch_raw(dev3, False)
     raw_ff = raw_ff.cpu().numpy()
     log(f"[2] config 3: B1, B2, B3 (Sc={b3_chunk}) bit-identical to plain; "
-        f"feasible lanes ff={int(b1.feasible.sum())} bf={int(b2.feasible.sum())}")
+        f"feasible lanes ff={int(b1.feasible.sum())} bf={int(b2.feasible.sum())}"
+        f"; B3 {geometry_line(fk, dev3, False, spot_chunk=b3_chunk)}")
 
     specs = [
         ("B1", "first-fit", "k8s_spot_rescheduler_tpu/ops/pallas_ffd.py:85",
@@ -743,7 +834,7 @@ def main() -> int:
     timings = {}
     for name, what, replaces, kern, plain, err, (bound_ms, bound_by) in specs:
         ms = time_ms(torch, kern)
-        dev_ms = device_ms(torch, kern, "ffd_kernel")
+        dev_ms = device_ms(torch, kern, FFD_KERNELS)
         plain_ms = time_ms(torch, plain, reps=5, warmup=1)
         timings[name] = dict(
             name=name, what=what, route="cuda",
@@ -830,7 +921,7 @@ def main() -> int:
     log(f"[3] kernels on the 256-lane chunk at {lo}, ms a wrapper call "
         f"(CUDA events) / device ms (profiler): "
         + ", ".join(f"{k} {time_ms(torch, fn):.4f} / "
-                    f"{fmt_ms(device_ms(torch, fn, 'ffd_kernel'))}"
+                    f"{fmt_ms(device_ms(torch, fn, FFD_KERNELS))}"
                     for k, fn in chunk_calls.items())
         + f" (B1 {geometry_line(fk, chunk3, False)}; "
         f"B2 {geometry_line(fk, chunk3, True)}) on {kind} [{card}]")

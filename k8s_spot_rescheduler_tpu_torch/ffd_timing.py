@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels B1/B2 timed at config 3 on one NVIDIA GPU.
+"""Kernels B1-B4 timed at config 3 on one NVIDIA GPU.
 
     python3 k8s_spot_rescheduler_tpu_torch/ffd_timing.py [--tree DIR] [--experiments]
 
@@ -8,12 +8,17 @@ checkout that holds this file), so that one run on the card can time two
 versions of the kernels: an older commit unpacked under DIR, and this
 one. On config 3 (the frozen ``data/config3_seed0.npz``), on all 2560
 lanes and on the staged tick's 256-lane chunk (the chunk of the frozen
-staged selection), it times B1 (``plan_ffd_kernel``) and B2
-(``best_fit=True``) two ways: one wrapper call (``ms``: median of 20
+staged selection), it times B1 (``plan_ffd_kernel``), B2
+(``best_fit=True``), and the carry-streamed union's two kernels at
+n = 4 spot chunks: B3 (``plan_stream_ff_kernel``, first-fit over four
+chunks of 640 spots) and B4 (``plan_stream_bf_kernel`` with the pack's
+carry layout). Each two ways: one wrapper call (``ms``: median of 20
 after warm-up, CUDA events around the call, host work included) and the
-device time (``device_ms``: mean over 20 calls of the time torch.profiler
-records in the kernels whose name holds ``ffd_``, null when it records
-none), with the timing helpers of this checkout's ``chip_smoke.py``.
+device time (``device_ms``: mean over 20 calls of the time
+torch.profiler records in the kernels named in ``chip_smoke``'s
+``FFD_KERNELS`` or ``STREAM_KERNELS``, every launch of a call summed,
+null when it records none), with the timing helpers of this checkout's
+``chip_smoke.py``.
 
 With ``--experiments`` (needs this checkout's launch geometry) it also
 gives B1/B2's device time with each lane's first k valid slots kept
@@ -35,7 +40,7 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL = "ffd_"  # the B1/B2 kernels' names hold it, B4's does not
+N_CHUNKS = 4  # the streamed union's spot chunks for B3 and B4
 GEOMETRIES = (
     (False, [(L, 1) for L in (1, 4, 8, 16, 20, 32)]),
     (True, [(1, 1), (8, 1), (32, 1), (1, 2), (4, 2), (15, 2), (1, 4),
@@ -53,7 +58,8 @@ def slot_times(torch, smoke, fk, packed) -> dict:
         sub = packed._replace(slot_valid=packed.slot_valid & (rank <= k))
         for best_fit in (False, True):
             out[f"{'B2' if best_fit else 'B1'} k={k}"] = smoke.device_ms(
-                torch, lambda: fk.launch_raw(sub, best_fit), KERNEL, reps=10)
+                torch, lambda: fk.launch_raw(sub, best_fit),
+                smoke.FFD_KERNELS, reps=10)
     return out
 
 
@@ -72,26 +78,24 @@ def geometry_times(torch, smoke, fk, packed) -> dict:
                     f"geometry L={L} P={P} best_fit={best_fit} changed "
                     f"the answer")
             out[f"{'B2' if best_fit else 'B1'} L={L} P={P}"] = smoke.device_ms(
-                torch, lambda: fk.launch_raw(packed, best_fit, g), KERNEL,
-                reps=10)
+                torch, lambda: fk.launch_raw(packed, best_fit, g),
+                smoke.FFD_KERNELS, reps=10)
     return out
 
 
 def load(tree: str) -> tuple:
     """(``chip_smoke`` of this checkout, for its timing helpers; then
-    ``ops.ffd_kernels`` and ``models.tensors`` of the port under
-    ``tree``). chip_smoke is imported first, as ``tree`` holds its own,
-    older one."""
+    ``ops.ffd_kernels``, ``models.tensors`` and ``solver.carry`` of the
+    port under ``tree``). chip_smoke is imported first, as ``tree``
+    holds its own, older one."""
     import importlib
 
     sys.path.insert(0, HERE)
     smoke = importlib.import_module("chip_smoke")
     sys.path.insert(0, tree)
-    fk = importlib.import_module(
-        "k8s_spot_rescheduler_tpu_torch.ops.ffd_kernels")
-    tensors = importlib.import_module(
-        "k8s_spot_rescheduler_tpu_torch.models.tensors")
-    return smoke, fk, tensors
+    port = "k8s_spot_rescheduler_tpu_torch"
+    return smoke, *(importlib.import_module(f"{port}.{name}") for name in (
+        "ops.ffd_kernels", "models.tensors", "solver.carry"))
 
 
 def main(argv=None) -> int:
@@ -109,7 +113,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     tree = os.path.abspath(args.tree)
-    smoke, fk, tensors = load(tree)
+    smoke, fk, tensors, carry = load(tree)
     card = smoke.card_line()
     fk.build()
     host, ans = tensors.load_npz(os.path.join(
@@ -121,16 +125,25 @@ def main(argv=None) -> int:
         for f in ("slot_req", "slot_valid", "slot_tol", "slot_aff",
                   "cand_valid")
     })
+    layout = carry.carry_layout(host)
     print(card, flush=True)
     result = {"tree": os.path.relpath(tree), "card": card, "chunk_at": lo,
               "kernels": {}}
     for where, packed in (("all lanes", dev), ("the 256-lane chunk", chunk)):
-        for name, best_fit in (("B1", False), ("B2", True)):
-            def call():
-                return fk.plan_ffd_kernel(packed, best_fit=best_fit)
-
+        calls = {
+            "B1": (lambda: fk.plan_ffd_kernel(packed), smoke.FFD_KERNELS),
+            "B2": (lambda: fk.plan_ffd_kernel(packed, best_fit=True),
+                   smoke.FFD_KERNELS),
+            "B3": (lambda: fk.plan_stream_ff_kernel(
+                packed, carry_chunks=N_CHUNKS, layout=layout),
+                smoke.FFD_KERNELS),
+            "B4": (lambda: fk.plan_stream_bf_kernel(
+                packed, carry_chunks=N_CHUNKS, layout=layout),
+                smoke.STREAM_KERNELS),
+        }
+        for name, (call, kernels) in calls.items():
             row = {"ms": smoke.time_ms(torch, call),
-                   "device_ms": smoke.device_ms(torch, call, KERNEL)}
+                   "device_ms": smoke.device_ms(torch, call, kernels)}
             result["kernels"][f"{name} {where}"] = row
             print(f"{name} {where}: {row['ms']:.4f} ms a wrapper call, "
                   f"{smoke.fmt_ms(row['device_ms'])} ms on the device "

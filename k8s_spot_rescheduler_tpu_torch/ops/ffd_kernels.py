@@ -10,17 +10,22 @@
   spot statics of a block and keep per lane only an overlay of the
   spots it touched; ``launch_geometry`` picks their launch shape.
 - **B3** ``plan_ffd_chunked(packed, spot_chunk)``: first-fit over
-  ordered spot chunks, one B1 launch per chunk with ``slot_valid``
-  masked to the pods still unplaced and indices offset by the chunk's
+  ordered spot chunks in one launch of B1's kernel, which walks the
+  chunks as its outer loop, each chunk's statics staged once per block
+  and offered the pods still unplaced, indices offset by the chunk's
   start; replaces ``pallas_ffd.py:351`` ``_plan_ffd_chunked``. Exact
   for first-fit: per-spot state is independent across chunks and
   first-fit prefers earlier spots. It is the carry-streamed union's
   first-fit over more than one chunk (``plan_stream_ff_kernel``).
 - **B4** ``plan_stream_bf_kernel(packed, carry_chunks=, layout=)``: the
   fused best-fit elect-then-commit over the narrow delta carry, CUDA
-  C++ (``csrc/stream_bf.cu``); replaces ``pallas_ffd.py:191``
-  ``_stream_kernel`` (entry ``plan_stream_bf_pallas``), the
-  carry-streamed union's best-fit pass.
+  C++ (``csrc/stream_bf.cu``) on B2's design, the overlay's entries
+  holding the carry in the layout's dtypes; replaces
+  ``pallas_ffd.py:191`` ``_stream_kernel`` (entry
+  ``plan_stream_bf_pallas``), the carry-streamed union's best-fit pass.
+
+B1-B4 share their lane solve (``csrc/greedy.cuh``); ``launch_geometry``
+picks every kernel's launch shape.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version (``solver/ffd``), and only
@@ -30,9 +35,9 @@ kernels.
 
 Build: ``nvcc`` compiles each source in ``SOURCES`` for ``sm_90a`` into
 a shared library with a plain C interface under ``build/torch_kernels/``
-at the repo root, at first use, keyed by the hash of that source and
-the flags; the sources build in parallel, one ``nvcc`` each, and
-``ctypes`` loads them. Tensor pointers and PyTorch's current stream are
+at the repo root, at first use, keyed by the hash of that source, the
+``HEADERS`` it may include and the flags; the sources build in
+parallel, one ``nvcc`` each, and ``ctypes`` loads them. Tensor pointers and PyTorch's current stream are
 passed as integers; each launch function returns the launch's
 ``cudaError_t``. ``LAUNCH_ARGS`` and ``STREAM_LAUNCH_ARGS`` list
 ``ffd_launch``'s and ``stream_bf_launch``'s parameters in their C order
@@ -68,6 +73,7 @@ SOURCES = {  # library name -> its one source
     "ffd": os.path.join(CSRC, "ffd.cu"),
     "stream_bf": os.path.join(CSRC, "stream_bf.cu"),
 }
+HEADERS = (os.path.join(CSRC, "greedy.cuh"),)  # included by every source
 REPO_ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
@@ -107,8 +113,8 @@ LAUNCH_ARGS = (
     ("feasible", torch.bool),
     ("chosen", torch.int32),
     *((dim, "int") for dim in (
-        "C", "K", "R", "W", "A", "S", "best_fit", "lanes_per_block",
-        "warps_per_lane", "statics_in_smem", "smem_bytes",
+        "C", "K", "R", "W", "A", "S", "spot_chunk", "best_fit",
+        "lanes_per_block", "warps_per_lane", "statics_in_smem", "smem_bytes",
     )),
     ("stream", "stream"),
 )
@@ -118,9 +124,9 @@ STREAM_LAUNCH_ARGS = (
     *((name, dtype) for name, dtype, _ in _FIELDS),
     ("feasible", torch.bool),
     ("chosen", torch.int32),
-    ("workspace", torch.int32),
     *((dim, "int") for dim in (
         "C", "K", "R", "W", "A", "S", "used_code", "count_code", "aff_code",
+        "lanes_per_block", "warps_per_lane", "statics_in_smem", "smem_bytes",
     )),
     ("stream", "stream"),
 )
@@ -129,25 +135,28 @@ STREAM_LAUNCH_ARGS = (
 USED_CODES = {"int16": 0, "uint16": 1, "float32": 2}
 COUNT_CODES = {"int8": 0, "int16": 1, "int32": 2}
 AFF_CODES = {"uint8": 0, "uint16": 1, "uint32": 2}
+_ITEMSIZE = {"int8": 1, "uint8": 1, "int16": 2, "uint16": 2, "int32": 4,
+             "uint32": 4, "float32": 4}
 
 _SMEM_LIMIT = {}  # (library name, device index) -> its max dynamic smem
 _SM_COUNT = {}  # device index -> its streaming multiprocessors
 
 H100_SMS = 132
 H100_SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into
-WARPS_PER_LANE = (8, 4, 2, 1)  # B2's choices, widest first
-MAX_NAMED_LANES = 15  # bar.sync ids 1..15: B2 lanes of more than one warp
+WARPS_PER_LANE = (8, 4, 2, 1)  # B2's and B4's choices, widest first
+MAX_NAMED_LANES = 15  # bar.sync ids 1..15: lanes of more than one warp
 # the fewest warps a block takes when its lanes allow: the statics are
 # staged by every thread of the block
 STAGING_WARPS = 8
 
 
 class FfdGeometry(NamedTuple):
-    """How B1/B2 launch (``launch_geometry``): ``lanes_per_block`` lanes
-    of ``warps_per_lane`` warps share a block; the spot statics
-    (``statics_bytes``) sit in its shared memory or are read from device
-    memory; each lane takes ``lane_bytes`` (slot rows, overlay, touched
-    bitmap); ``smem_bytes`` is the block's dynamic shared memory."""
+    """How B1-B4 launch (``launch_geometry``): ``lanes_per_block`` lanes
+    of ``warps_per_lane`` warps share a block; the spot statics of one
+    chunk (``statics_bytes``) sit in its shared memory or are read from
+    device memory; each lane takes ``lane_bytes`` (slot rows, overlay,
+    touched bitmap); ``smem_bytes`` is the block's dynamic shared
+    memory."""
 
     lanes_per_block: int
     warps_per_lane: int
@@ -161,31 +170,47 @@ class FfdGeometry(NamedTuple):
         return 32 * self.lanes_per_block * self.warps_per_lane
 
 
+def overlay_words(K: int, R: int, A: int, layout=None) -> int:
+    """32-bit words of a lane's K overlay entries: B1-B3's absolute free
+    [R], room and aff [A] (``layout`` None), or B4's deltas in
+    ``layout``'s dtypes, used [R][K], dcount [K] and daff [A][K], each
+    plane padded to a word (``greedy.cuh`` ``DeltaOverlay``)."""
+    if layout is None:
+        return K * (R + 1 + A)
+    return (-(-R * K * _ITEMSIZE[layout.used] // 4)
+            + -(-K * _ITEMSIZE[layout.count] // 4)
+            + -(-A * K * _ITEMSIZE[layout.aff] // 4))
+
+
 @functools.lru_cache(maxsize=256)
 def launch_geometry(
     C: int, K: int, S: int, R: int, W: int, A: int, smem_limit: int,
-    best_fit: bool, n_sm: int = H100_SMS,
+    best_fit: bool, n_sm: int = H100_SMS, layout=None,
 ) -> FfdGeometry:
-    """The launch shape of B1 (``best_fit=False``) or B2 over C lanes of
-    K slots and S spots, for blocks of at most ``smem_limit`` bytes of
-    dynamic shared memory (``ffd_max_dynamic_smem``) on ``n_sm`` SMs.
+    """The launch shape of B1 (``best_fit=False``), B2, or B4 (best-fit
+    with its carry ``layout``) over C lanes of K slots and S spots (for
+    B3, S is its chunk width: a block holds one chunk's statics at a
+    time), for blocks of at most ``smem_limit`` bytes of dynamic shared
+    memory (``ffd_max_dynamic_smem``, ``stream_bf_max_dynamic_smem``) on
+    ``n_sm`` SMs.
 
-    B1 runs one warp per lane (``warps_per_lane`` 1); B2 the most of 8,
-    4, 2, 1 warps that has a window of 32 spots for each. A lane's state
-    is its slot rows (K*(R+W+A+1) words), its overlay (K*(R+A+2) words),
-    its touched bitmap (ceil(S/32) words) and B2's partials (4P words).
-    The statics (S*(R+1+W+A) words) go in shared memory when they fit
-    beside one lane, else the kernel reads them from device memory. Lanes
-    per block: as many as shared memory and 1,024 threads allow (at most
-    15 when a lane has several warps) and no more than C, but no more
-    than ceil(C/n_sm) either, so the lanes spread over every SM, unless
-    that leaves fewer than ``STAGING_WARPS`` warps to stage the statics.
+    First-fit runs one warp per lane (``warps_per_lane`` 1); best-fit
+    the most of 8, 4, 2, 1 warps that has a window of 32 spots for each.
+    A lane's state is its slot rows and entry indices (K*(R+W+A+2)
+    words), its overlay (``overlay_words``), its touched bitmap
+    (ceil(S/32) words) and best-fit's partials (4P words). The statics
+    (S*(R+1+W+A) words) go in shared memory when they fit beside one
+    lane, else the kernel reads them from device memory. Lanes per
+    block: as many as shared memory and 1,024 threads allow (at most 15
+    when a lane has several warps) and no more than C, but no more than
+    ceil(C/n_sm) either, so the lanes spread over every SM, unless that
+    leaves fewer than ``STAGING_WARPS`` warps to stage the statics.
     Raises ``ValueError`` when one lane's state alone exceeds
     ``smem_limit``."""
     P = 1
     if best_fit:
         P = next(p for p in WARPS_PER_LANE if p <= max(1, -(-S // 32)))
-    one = fixed_geometry(K, S, R, W, A, 1, P, True)
+    one = fixed_geometry(K, S, R, W, A, 1, P, True, layout)
     if one.lane_bytes > smem_limit:
         raise ValueError(
             f"one lane of K={K} S={S} R={R} W={W} A={A} takes "
@@ -198,15 +223,18 @@ def launch_geometry(
     L = min((smem_limit - base) // one.lane_bytes, 32 // P, spread)
     if P > 1:
         L = min(L, MAX_NAMED_LANES)
-    return fixed_geometry(K, S, R, W, A, max(1, L), P, in_smem)
+    return fixed_geometry(K, S, R, W, A, max(1, L), P, in_smem, layout)
 
 
 def fixed_geometry(K: int, S: int, R: int, W: int, A: int, lanes: int,
-                   warps: int, statics_in_smem: bool) -> FfdGeometry:
+                   warps: int, statics_in_smem: bool,
+                   layout=None) -> FfdGeometry:
     """The geometry of ``lanes`` lanes of ``warps`` warps a block with the
-    statics in shared memory or not, its bytes counted as the kernel
-    counts them (``ffd_launch`` rejects any other ``smem_bytes``)."""
-    lane_bytes = 4 * (K * (2 * R + W + 2 * A + 3) + -(-S // 32) + 4 * warps)
+    statics in shared memory or not, for B1-B3 (``layout`` None) or B4,
+    its bytes counted as the kernel counts them (``ffd_launch`` and
+    ``stream_bf_launch`` reject any other ``smem_bytes``)."""
+    lane_bytes = 4 * (K * (R + W + A + 2) + overlay_words(K, R, A, layout)
+                      + -(-S // 32) + 4 * warps)
     statics_bytes = 4 * S * (R + 1 + W + A)
     base = statics_bytes if statics_in_smem else 0
     return FfdGeometry(lanes, warps, statics_in_smem,
@@ -232,11 +260,14 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """The library of source ``name``, named by the hash of the source,
+    every header in ``HEADERS`` and the flags."""
+    h = hashlib.sha256()
+    for path in (SOURCES[name], *HEADERS):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build() -> dict:
@@ -283,12 +314,9 @@ def _bind(name: str, lib) -> None:
     smem = getattr(lib, f"{name}_max_dynamic_smem")
     smem.argtypes = [i32]
     smem.restype = i32
-    if name == "ffd":
-        lib.ffd_blocks.argtypes = [i32] * 9
-        lib.ffd_blocks.restype = i32
-    else:
-        lib.stream_bf_state_bytes.argtypes = [i32] * 6
-        lib.stream_bf_state_bytes.restype = ctypes.c_longlong
+    blocks = getattr(lib, f"{name}_blocks")
+    blocks.argtypes = [i32] * (9 if name == "ffd" else 8)
+    blocks.restype = i32
     error = getattr(lib, f"{name}_error_string")
     error.argtypes = [i32]
     error.restype = ctypes.c_char_p
@@ -347,26 +375,36 @@ def _sm_count(device_index: int) -> int:
     return count
 
 
-def card_geometry(packed, best_fit: bool) -> FfdGeometry:
-    """The geometry B1/B2 take for ``packed`` on its card."""
+def card_geometry(packed, best_fit: bool, *, spot_chunk: int | None = None,
+                  layout=None) -> FfdGeometry:
+    """The geometry B1/B2 (B3 with ``spot_chunk``, B4 with its carry
+    ``layout``) take for ``packed`` on its card."""
     C, K, S, R, W, A = shapes(packed)
+    if spot_chunk is not None:
+        S = min(S, spot_chunk)  # a block holds one chunk's statics
     index = _device_index(packed.slot_req.device)
-    return launch_geometry(C, K, S, R, W, A, _smem_limit("ffd", index),
-                           best_fit, n_sm=_sm_count(index))
+    name = "ffd" if layout is None else "stream_bf"
+    return launch_geometry(C, K, S, R, W, A, _smem_limit(name, index),
+                           best_fit, n_sm=_sm_count(index), layout=layout)
 
 
-def grid_blocks(packed, geometry: FfdGeometry, best_fit: bool) -> int:
+def grid_blocks(packed, geometry: FfdGeometry, best_fit: bool,
+                layout=None) -> int:
     """Blocks of the persistent grid a launch in ``geometry`` takes on
-    ``packed``'s card (``ffd_blocks``: CUDA's occupancy)."""
+    ``packed``'s card (``ffd_blocks``, or ``stream_bf_blocks`` for B4:
+    CUDA's occupancy)."""
     C, _, _, R, W, A = shapes(packed)
+    shape = (geometry.lanes_per_block, geometry.warps_per_lane,
+             int(geometry.statics_in_smem), geometry.smem_bytes)
+    name = "ffd" if layout is None else "stream_bf"
+    lib = library(name)
     with torch.cuda.device(_device_index(packed.slot_req.device)):
-        blocks = library().ffd_blocks(
-            C, R, W, A, int(best_fit), geometry.lanes_per_block,
-            geometry.warps_per_lane, int(geometry.statics_in_smem),
-            geometry.smem_bytes,
-        )
+        if layout is None:
+            blocks = lib.ffd_blocks(C, R, W, A, int(best_fit), *shape)
+        else:
+            blocks = lib.stream_bf_blocks(C, R, W, A, *shape)
     if blocks < 0:
-        _raise_on(library(), "ffd", -blocks)
+        _raise_on(lib, name, -blocks)
     return blocks
 
 
@@ -381,22 +419,6 @@ def _stream_codes(layout) -> tuple:
         raise ValueError(f"kernel B4 has no plane of dtype {err}") from None
 
 
-def stream_state_bytes(layout, R: int, A: int, S: int) -> int:
-    """Bytes of one lane's B4 delta carry under ``layout`` (each plane
-    16-byte aligned)."""
-    return library("stream_bf").stream_bf_state_bytes(
-        R, A, S, *_stream_codes(layout)
-    )
-
-
-def stream_state_fits_smem(layout, R: int, A: int, S: int,
-                           device_index: int) -> bool:
-    """Whether one lane's B4 delta carry fits a block's shared memory."""
-    return stream_state_bytes(layout, R, A, S) <= _smem_limit(
-        "stream_bf", device_index
-    )
-
-
 def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
@@ -407,71 +429,66 @@ def _raise_on(lib, name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {message}")
 
 
-def launch_raw(packed, best_fit: bool, geometry: FfdGeometry | None = None):
-    """One B1/B2 launch, uncounted: (feasible bool [C], chosen int32
-    [C, K] with -1 for unplaced slots, NOT masked by lane feasibility;
-    lanes with cand_valid=0 report feasible=0 and chosen=-1). Launches in
-    ``geometry``, by default ``card_geometry(packed, best_fit)``; the
-    kernel allocates nothing."""
-    _check(packed)
-    lib = library()
+def _launch(name: str, packed, geometry: FfdGeometry, **dims):
+    """One launch of library ``name``'s kernel on ``packed`` in
+    ``geometry`` with the further int arguments ``dims``: (feasible bool
+    [C], chosen int32 [C, K]), ``packed`` checked by the caller."""
+    lib = library(name)
     C, K, S, R, W, A = shapes(packed)
     dev = packed.slot_req.device
     index = _device_index(dev)
-    if geometry is None:
-        geometry = card_geometry(packed, best_fit)
     feasible = torch.empty((C,), dtype=torch.bool, device=dev)
     chosen = torch.empty((C, K), dtype=torch.int32, device=dev)
+    spec = LAUNCH_ARGS if name == "ffd" else STREAM_LAUNCH_ARGS
     with torch.cuda.device(index):
-        args = {name: getattr(packed, name).data_ptr() for name, _, _ in _FIELDS}
+        args = {n: getattr(packed, n).data_ptr() for n, _, _ in _FIELDS}
         args.update(
             feasible=feasible.data_ptr(),
             chosen=chosen.data_ptr(),
             C=C, K=K, R=R, W=W, A=A, S=S,
-            best_fit=int(best_fit),
             lanes_per_block=geometry.lanes_per_block,
             warps_per_lane=geometry.warps_per_lane,
             statics_in_smem=int(geometry.statics_in_smem),
             smem_bytes=geometry.smem_bytes,
             stream=torch.cuda.current_stream(index).cuda_stream,
+            **dims,
         )
-        err = lib.ffd_launch(*(args[name] for name, _ in LAUNCH_ARGS))
-    _raise_on(lib, "ffd", err)
+        err = getattr(lib, f"{name}_launch")(*(args[n] for n, _ in spec))
+    _raise_on(lib, name, err)
     return feasible, chosen
 
 
-def launch_stream_raw(packed, layout):
+def launch_raw(packed, best_fit: bool, geometry: FfdGeometry | None = None,
+               spot_chunk: int | None = None):
+    """One B1/B2 launch, or B3's over spot chunks of ``spot_chunk``
+    spots, uncounted: (feasible bool [C], chosen int32 [C, K] with -1 for
+    unplaced slots, NOT masked by lane feasibility; lanes with
+    cand_valid=0 report feasible=0 and chosen=-1). Launches in
+    ``geometry``, by default ``card_geometry``; the kernel allocates
+    nothing."""
+    _check(packed)
+    S = packed.spot_free.shape[0]
+    chunk = max(1, S) if spot_chunk is None else int(spot_chunk)
+    if chunk < 1 or (best_fit and chunk < S):
+        raise ValueError(f"spot chunk {chunk} for best_fit={best_fit}, S={S}")
+    if geometry is None:
+        geometry = card_geometry(packed, best_fit, spot_chunk=chunk)
+    return _launch("ffd", packed, geometry, spot_chunk=chunk,
+                   best_fit=int(best_fit))
+
+
+def launch_stream_raw(packed, layout, geometry: FfdGeometry | None = None):
     """One B4 launch, uncounted: (feasible, chosen) as ``launch_raw``.
-    The lane's delta carry lives in shared memory where it fits
-    (``stream_state_fits_smem``), else in a device-memory workspace
-    allocated here, in the layout's dtypes."""
+    Each lane's overlay holds its entries in ``layout``'s dtypes; the
+    statics are staged in shared memory or read from device memory as
+    ``geometry`` (by default ``card_geometry``) says; nothing is
+    allocated beside the outputs."""
     _check(packed)
     codes = _stream_codes(layout)
-    lib = library("stream_bf")
-    C, K, S, R, W, A = shapes(packed)
-    dev = packed.slot_req.device
-    index = _device_index(dev)
-    feasible = torch.empty((C,), dtype=torch.bool, device=dev)
-    chosen = torch.empty((C, K), dtype=torch.int32, device=dev)
-    buf = None
-    if not stream_state_fits_smem(layout, R, A, S, index):
-        lane_bytes = stream_state_bytes(layout, R, A, S)  # a multiple of 16
-        buf = torch.empty((C * lane_bytes // 4,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(index):
-        args = {name: getattr(packed, name).data_ptr() for name, _, _ in _FIELDS}
-        args.update(
-            feasible=feasible.data_ptr(),
-            chosen=chosen.data_ptr(),
-            workspace=None if buf is None else buf.data_ptr(),
-            C=C, K=K, R=R, W=W, A=A, S=S,
-            used_code=codes[0], count_code=codes[1], aff_code=codes[2],
-            stream=torch.cuda.current_stream(index).cuda_stream,
-        )
-        err = lib.stream_bf_launch(
-            *(args[name] for name, _ in STREAM_LAUNCH_ARGS)
-        )
-    _raise_on(lib, "stream_bf", err)
-    return feasible, chosen
+    if geometry is None:
+        geometry = card_geometry(packed, True, layout=layout)
+    return _launch("stream_bf", packed, geometry, used_code=codes[0],
+                   count_code=codes[1], aff_code=codes[2])
 
 
 def plan_ffd_kernel(packed, best_fit: bool = False) -> SolveResult:
@@ -485,10 +502,10 @@ def plan_ffd_kernel(packed, best_fit: bool = False) -> SolveResult:
     return SolveResult(feasible=feasible, assignment=assignment)
 
 
-def _chunk_loop(packed, spot_chunk: int, raw_fn) -> SolveResult:
-    """First-fit over ordered spot chunks of ``spot_chunk`` spots, each
-    a ``raw_fn(sub) -> (feasible, chosen)`` first-fit pass over the pods
-    still unplaced."""
+def plan_ffd_chunked_plain(packed, spot_chunk: int) -> SolveResult:
+    """B3's plain version: first-fit over ordered spot chunks of
+    ``spot_chunk`` spots, each a ``solver/ffd.ffd_raw`` pass over the
+    pods still unplaced."""
     C, K = packed.slot_req.shape[:2]
     S = packed.spot_free.shape[0]
     remaining = packed.slot_valid
@@ -506,7 +523,7 @@ def _chunk_loop(packed, spot_chunk: int, raw_fn) -> SolveResult:
             spot_ok=packed.spot_ok[off:end],
             spot_aff=packed.spot_aff[off:end],
         )
-        _, chosen_b = raw_fn(sub)
+        _, chosen_b = ffd_raw(sub, False)
         placed_b = chosen_b >= 0
         chosen_total = torch.where(placed_b, chosen_b + off, chosen_total)
         remaining = remaining & ~placed_b
@@ -516,23 +533,16 @@ def _chunk_loop(packed, spot_chunk: int, raw_fn) -> SolveResult:
     return SolveResult(feasible=feasible, assignment=assignment)
 
 
-def plan_ffd_chunked_plain(packed, spot_chunk: int) -> SolveResult:
-    """B3's plain version: the chunk loop around ``solver/ffd.ffd_raw``."""
-    return _chunk_loop(packed, spot_chunk, lambda sub: ffd_raw(sub, False))
-
-
 def plan_ffd_chunked(packed, spot_chunk: int) -> SolveResult:
-    """B3: first-fit over spot chunks of ``spot_chunk`` spots, one B1
-    launch per chunk. CPU tensors take the plain version."""
+    """B3: first-fit over spot chunks of ``spot_chunk`` spots, one launch
+    whose blocks walk the chunks in order. CPU tensors take the plain
+    version."""
     if not packed.slot_req.is_cuda:
         return plan_ffd_chunked_plain(packed, spot_chunk)
-
-    def raw(sub):
-        out = launch_raw(sub, False)
-        LAUNCHES["B3"] += 1
-        return out
-
-    return _chunk_loop(packed, spot_chunk, raw)
+    feasible, chosen = launch_raw(packed, False, spot_chunk=spot_chunk)
+    LAUNCHES["B3"] += 1
+    assignment = torch.where(feasible[:, None], chosen, -1)
+    return SolveResult(feasible=feasible, assignment=assignment)
 
 
 def greedy_solver():
@@ -549,10 +559,10 @@ def plan_stream_ff_kernel(
     packed, *, carry_chunks: int = 2, layout=NARROW_LAYOUT
 ) -> SolveResult:
     """The carry-streamed union's first-fit (the contract of
-    ``solver/ffd.plan_ffd_streamed``): B1 for one chunk, B3 over spot
-    chunks of ceil(S / ``carry_chunks``) spots for more. The kernels
-    hold their lane state wide, so ``layout`` sizes only the plain
-    version, which CPU tensors take."""
+    ``solver/ffd.plan_ffd_streamed``): B1 for one chunk, one B3 launch
+    over spot chunks of ceil(S / ``carry_chunks``) spots for more. The
+    kernels hold their overlay entries wide, so ``layout`` sizes only the
+    plain version, which CPU tensors take."""
     if not packed.slot_req.is_cuda:
         return plan_ffd_streamed(
             packed, carry_chunks=carry_chunks, layout=layout
@@ -568,9 +578,9 @@ def plan_stream_bf_kernel(
 ) -> SolveResult:
     """B4: the fused best-fit stream solve over the narrow delta carry
     ``layout`` (the contract of ``plan_ffd_streamed(best_fit=True)``
-    and of the JAX package's ``plan_stream_bf_pallas``). Past a block's
-    shared memory the carry lives in a device-memory workspace.
-    ``carry_chunks`` does not change the result: the chunked election
+    and of the JAX package's ``plan_stream_bf_pallas``). Each lane's
+    overlay holds the carry of the spots it touched, in shared memory
+    even where the statics pass it. ``carry_chunks`` does not change the result: the chunked election
     is the global one; it sizes only the plain version, which CPU
     tensors take."""
     if not packed.slot_req.is_cuda:

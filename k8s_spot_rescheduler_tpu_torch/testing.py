@@ -18,6 +18,20 @@ hold the kernels against ``solver/ffd.plan_ffd`` on every one of them:
 - ``later_window``: the only other fit lies in window 2, behind a spot of
   window 0 that earlier slots touched until it is full (by room,
   capacity or affinity, one lane each).
+
+And the packs that stress kernel B4's narrow overlay, whose entries hold
+the delta carry in the ``carry_layout`` dtypes (``STRESS_LAYOUTS`` names
+each one's layout):
+
+- ``k_distinct``: K=48 slots that share an affinity bit, so a lane
+  touches K distinct spots and its entries span two warp-widths;
+- ``dcount_guard``: K=127 pods re-hit the one spot that fits until
+  ``dcount`` reaches int8's guard, 127;
+- ``used_int16_edge`` / ``used_uint16_edge``: a lane's requests on one
+  spot sum to 32,767 / 65,535, the top of the int16 / uint16 ``used``;
+- ``aff_bit7`` / ``aff_bit15`` / ``aff_bit31``: affinity bits up to
+  bit 7 / 15 / 31, the top bit of a uint8 / uint16 / uint32 ``daff``
+  (bit 31 is a negative int32 word on the card).
 """
 
 from __future__ import annotations
@@ -103,6 +117,100 @@ def _later_window() -> PackedCluster:
     )
 
 
+def _k_distinct(rng) -> PackedCluster:
+    """Every slot carries affinity bit 3 and no spot does: each pod needs
+    a spot no earlier pod of its lane took. Lane 0's 48 slots are all
+    valid and 48 spots fit every pod."""
+    C, K, S = 12, 48, 200
+    base = random_pack(rng, C, K, S, 2, req_max=10)
+    valid = base.slot_valid.copy()
+    valid[0] = True
+    free = base.spot_free.copy()
+    free[:K] = 2000.0
+    ok = base.spot_ok.copy()
+    ok[:K] = True
+    return base._replace(
+        slot_valid=valid,
+        slot_aff=np.full((C, K, 2), 8, np.uint32) * np.array([1, 0],
+                                                              np.uint32),
+        spot_aff=np.zeros((S, 2), np.uint32),
+        spot_taints=np.zeros((S, 1), np.uint32),
+        spot_count=np.zeros((S,), np.int32),
+        spot_max_pods=np.full((S,), 50, np.int32),
+        spot_free=free,
+        spot_ok=ok,
+    )
+
+
+def _one_spot_fits(rng, C: int, K: int, S: int, R: int, req: float,
+                   spot: int) -> PackedCluster:
+    """C lanes of K pods requesting ``req`` of every resource, lane 0's
+    all valid; only ``spot`` takes any (room for K more, free for exactly
+    K), the other spots each ruled out by ok, capacity, room or taint."""
+    base = random_pack(rng, C, K, S, R)
+    valid = base.slot_valid.copy()
+    valid[0] = True
+    free = np.full((S, R), K * req, np.float32)
+    ok = np.ones((S,), bool)
+    count = np.full((S,), 3, np.int32)
+    max_pods = np.full((S,), 3 + K, np.int32)
+    taints = np.zeros((S, 1), np.uint32)
+    for s in range(S):
+        if s == spot:
+            continue
+        rule = s % 4
+        if rule == 0:
+            ok[s] = False
+        elif rule == 1:
+            free[s] = req - 10.0
+        elif rule == 2:
+            max_pods[s] = 3
+        else:
+            taints[s] = 4  # no slot tolerates bit 2
+    return base._replace(
+        slot_req=np.full((C, K, R), req, np.float32),
+        slot_valid=valid,
+        slot_tol=np.zeros((C, K, 1), np.uint32),
+        slot_aff=np.zeros((C, K, 2), np.uint32),
+        spot_free=free,
+        spot_count=count,
+        spot_max_pods=max_pods,
+        spot_taints=taints,
+        spot_ok=ok,
+        spot_aff=np.zeros((S, 2), np.uint32),
+    )
+
+
+def _aff_bits(rng, top: int) -> PackedCluster:
+    """Affinity words of bits 0..``top`` (at least one ``top``), few
+    spots with room for many pods, so pods sharing a bit spread over the
+    spots a lane touched."""
+    C, K, S = 24, 12, 40
+    base = random_pack(rng, C, K, S, 2, req_max=6, max_pods=30)
+    aff = random_bits(rng, (C, K, 2), p=0.6, top=top + 1)
+    aff[0, 0, 0] = np.uint32(1) << top
+    aff[:, ::2, 1] = np.uint32(1) << top  # half the pods share the top bit
+    spot_aff = random_bits(rng, (S, 2), p=0.2, top=top + 1)
+    return base._replace(
+        slot_aff=aff,
+        spot_aff=spot_aff,
+        spot_ok=np.ones((S,), bool),
+        spot_free=np.abs(base.spot_free) + 400.0,
+    )
+
+
+# the carry layout (used, count, aff) each B4 stress pack is built for
+STRESS_LAYOUTS = {
+    "k_distinct": ("int16", "int8", "uint8"),
+    "dcount_guard": ("int16", "int8", "uint8"),
+    "used_int16_edge": ("int16", "int8", "uint8"),
+    "used_uint16_edge": ("uint16", "int8", "uint8"),
+    "aff_bit7": ("int16", "int8", "uint8"),
+    "aff_bit15": ("int16", "int8", "uint16"),
+    "aff_bit31": ("int16", "int8", "uint32"),
+}
+
+
 def overlay_stress_packs(seed: int = 0) -> dict:
     """{name: host pack} of the overlay's corner cases (module doc)."""
     rng = np.random.default_rng(seed)
@@ -116,4 +224,11 @@ def overlay_stress_packs(seed: int = 0) -> dict:
         "ragged_lanes": random_pack(rng, 2567, 8, 300, 4),
         "invalid_blocks": invalid._replace(cand_valid=cand),
         "later_window": _later_window(),
+        "k_distinct": _k_distinct(rng),
+        "dcount_guard": _one_spot_fits(rng, 6, 127, 40, 2, 200.0, 37),
+        "used_int16_edge": _one_spot_fits(rng, 6, 7, 70, 4, 4681.0, 45),
+        "used_uint16_edge": _one_spot_fits(rng, 6, 5, 70, 4, 13107.0, 66),
+        "aff_bit7": _aff_bits(rng, 7),
+        "aff_bit15": _aff_bits(rng, 15),
+        "aff_bit31": _aff_bits(rng, 31),
     }

@@ -10,6 +10,7 @@ Without a card the ``cuda``-marked tests skip and the rest check the
 wrappers' CPU path: the plain version, and no launch.
 """
 
+import os
 import re
 
 import numpy as np
@@ -31,6 +32,7 @@ from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
     plan_ffd_streamed,
 )
 from k8s_spot_rescheduler_tpu_torch.testing import (
+    STRESS_LAYOUTS,
     overlay_stress_packs,
     random_bits,
     random_pack,
@@ -170,21 +172,40 @@ def test_launch_args_match_the_c_signature(source, function, args):
 
 def test_build_hashes_every_source(tmp_path, monkeypatch):
     """Each source has its own library, named by the hash of that
-    source: editing one source renames its library alone, so the next
-    build compiles it again."""
+    source and of the headers the sources include: editing one source
+    renames its library alone, editing a header renames every library,
+    so the next build compiles what changed."""
     sources = {}
     for name in ffd_kernels.SOURCES:
         sources[name] = tmp_path / f"{name}.cu"
         sources[name].write_text(f"// {name}\n")
+    header = tmp_path / "greedy.cuh"
+    header.write_text("// header\n")
     monkeypatch.setattr(ffd_kernels, "SOURCES", {
         name: str(path) for name, path in sources.items()
     })
+    monkeypatch.setattr(ffd_kernels, "HEADERS", (str(header),))
     before = {name: ffd_kernels._library_path(name) for name in sources}
     sources["stream_bf"].write_text("// stream_bf, edited\n")
     after = {name: ffd_kernels._library_path(name) for name in sources}
     assert after["ffd"] == before["ffd"]
     assert after["stream_bf"] != before["stream_bf"]
     assert len(set(after.values())) == len(sources)
+    header.write_text("// header, edited\n")
+    again = {name: ffd_kernels._library_path(name) for name in sources}
+    assert all(again[name] != after[name] for name in sources)
+
+
+def test_every_source_includes_only_the_hashed_headers():
+    """A header the sources include but the build does not hash would
+    load a stale library after an edit."""
+    hashed = {os.path.basename(path) for path in ffd_kernels.HEADERS}
+    for path in ffd_kernels.SOURCES.values():
+        with open(path) as f:
+            included = set(re.findall(r'#include "([^"]+)"', f.read()))
+        assert included and included <= hashed
+    for path in ffd_kernels.HEADERS:
+        assert os.path.dirname(path) == ffd_kernels.CSRC
 
 
 # (C, K, S, R, W, A) of the geometry cases: config 3, contended, S=9000
@@ -250,6 +271,83 @@ def test_launch_geometry_grows_lanes_until_shared_memory_binds():
     assert g.smem_bytes + g.lane_bytes > limit >= g.smem_bytes  # smem binds
 
 
+# (C, K, S, R, W, A, layout, SMs) of B4's geometry cases: configs 3
+# and 4, contended, the wide layout, S=24000 past shared memory, K=130
+# (int16 counts), a float32 `used`, and one SM with two warps a lane,
+# where the 15 named barriers cap the lanes
+STREAM_GEOMETRY_SHAPES = {
+    "config3": (2560, 32, 2560, 4, 1, 2, CarryLayout("int16", "int8", "uint8"),
+                132),
+    "config4": (2560, 32, 2560, 4, 1, 2,
+                CarryLayout("int16", "int8", "uint32"), 132),
+    "contended": (512, 8, 1152, 2, 17, 2,
+                  CarryLayout("int16", "int8", "uint32"), 132),
+    "wide": (2560, 32, 2560, 4, 1, 2, CarryLayout(), 132),
+    "s24000": (64, 32, 24000, 4, 1, 2, CarryLayout("int16", "int8", "uint8"),
+               132),
+    "k130": (24, 130, 200, 4, 1, 2, CarryLayout("int16", "int16", "uint32"),
+             132),
+    "float_used": (300, 12, 700, 3, 1, 2,
+                   CarryLayout("float32", "int8", "uint16"), 132),
+    "cap15": (2560, 8, 64, 2, 1, 2, CarryLayout("int16", "int8", "uint8"), 1),
+}
+_ITEMSIZE = {"int8": 1, "uint8": 1, "int16": 2, "uint16": 2, "int32": 4,
+             "uint32": 4, "float32": 4}
+
+
+@pytest.mark.parametrize("case", STREAM_GEOMETRY_SHAPES, ids=str)
+def test_stream_geometry(case):
+    """B4's launch shape: B2's warps and lanes, a lane's bytes counted
+    as stream_bf.cu counts them (slot rows, K overlay entries in the
+    layout's dtypes with each plane padded to a word, the touched bitmap,
+    the partials), never a plane over every spot, and the statics in
+    shared memory where they fit and in device memory past that."""
+    C, K, S, R, W, A, lay, n_sm = STREAM_GEOMETRY_SHAPES[case]
+    limit = ffd_kernels.H100_SMEM_LIMIT
+    g = ffd_kernels.launch_geometry(C, K, S, R, W, A, limit, True, n_sm=n_sm,
+                                    layout=lay)
+    b2 = ffd_kernels.launch_geometry(C, K, S, R, W, A, limit, True, n_sm=n_sm)
+    L, P = g.lanes_per_block, g.warps_per_lane
+    assert P == b2.warps_per_lane and g.threads == 32 * L * P <= 1024
+    entries = (-(-R * K * _ITEMSIZE[lay.used] // 4)
+               + -(-K * _ITEMSIZE[lay.count] // 4)
+               + -(-A * K * _ITEMSIZE[lay.aff] // 4))
+    assert g.lane_bytes == 4 * (K * (R + W + A + 2) + entries + -(-S // 32)
+                                + 4 * P)
+    assert g.lane_bytes <= b2.lane_bytes
+    assert (g.lane_bytes < b2.lane_bytes) == (lay != CarryLayout())
+    assert g.statics_bytes == b2.statics_bytes == 4 * S * (R + 1 + W + A)
+    staged = g.statics_bytes if g.statics_in_smem else 0
+    assert g.smem_bytes == staged + L * g.lane_bytes <= limit
+    assert g.statics_in_smem == (case != "s24000")
+    assert P == 1 or L <= ffd_kernels.MAX_NAMED_LANES
+    if case == "cap15":
+        assert (L, P) == (ffd_kernels.MAX_NAMED_LANES, 2)
+    if case == "config3":
+        assert g.lane_bytes == 1952 and (L, P) == (4, 8)
+
+
+@pytest.mark.parametrize("n", [2, 4, 5])
+@pytest.mark.parametrize("S", [2560, 24000])
+def test_chunk_geometry(S, n):
+    """B3 stages one chunk's statics at a time: its geometry is B1's at
+    the chunk width ceil(S/n), statics and bitmap alike, so a pool past
+    shared memory is staged chunk by chunk once its chunks fit."""
+    C, K, R, W, A = 2560, 32, 4, 1, 2
+    limit = ffd_kernels.H100_SMEM_LIMIT
+    Sc = -(-S // n)
+    g = ffd_kernels.launch_geometry(C, K, Sc, R, W, A, limit, False)
+    whole = ffd_kernels.launch_geometry(C, K, S, R, W, A, limit, False)
+    assert g.warps_per_lane == 1
+    assert g.statics_bytes == 4 * Sc * (R + 1 + W + A)
+    assert g.lane_bytes == 4 * (K * (2 * R + W + 2 * A + 3) + -(-Sc // 32) + 4)
+    assert g.smem_bytes <= limit
+    assert g.statics_in_smem == (S == 2560 or n >= 4)
+    assert whole.statics_in_smem == (S == 2560)
+    if whole.statics_in_smem:  # a chunk leaves room for as many lanes
+        assert g.lanes_per_block >= whole.lanes_per_block
+
+
 STRESS = overlay_stress_packs(0)
 
 
@@ -285,6 +383,40 @@ def test_overlay_stress_packs_stress_what_they_name(name):
         assert ff.assignment.tolist() == want
         assert bf.assignment.tolist() == want
         assert ff.feasible.tolist() == [True, True, False, True]
+    if name in STRESS_LAYOUTS:
+        assert tuple(carry_layout(host)) == STRESS_LAYOUTS[name]
+    if name == "k_distinct":  # lane 0 touches K distinct spots
+        for res in (ff, bf):
+            assert bool(res.feasible[0])
+            assert len(set(res.assignment[0].tolist())) == K
+        assert K > 32
+    elif name in ("dcount_guard", "used_int16_edge", "used_uint16_edge"):
+        # every pod of lane 0 on the one spot that fits: dcount reaches
+        # K, used K * req
+        for res in (ff, bf):
+            placed = res.assignment[0]
+            assert bool(res.feasible[0]) and len(set(placed.tolist())) == 1
+        req = float(host.slot_req[0, 0, 0])
+        used = {"dcount_guard": None, "used_int16_edge": 32767.0,
+                "used_uint16_edge": 65535.0}[name]
+        if used is None:
+            assert K == np.iinfo(np.int8).max
+        else:
+            assert K * req == used
+    elif name.startswith("aff_bit"):
+        top = int(name[len("aff_bit"):])
+        bits = host.slot_aff.astype(np.uint64)
+        assert int(bits.max()) == 1 << top
+        # pods that share the top bit never share a spot in a lane
+        for res in (ff, bf):
+            clash = 0
+            for c in range(C):
+                spots = [int(s) for s, w in zip(res.assignment[c],
+                                                host.slot_aff[c, :, 1])
+                         if s >= 0 and w == 1 << top]
+                clash += len(spots) - len(set(spots))
+                assert len(spots) == len(set(spots))
+            assert clash == 0
 
 
 @pytest.mark.parametrize("layout", LAYOUTS[::5], ids=str)
@@ -328,16 +460,34 @@ def test_kernel_matches_plain_on_the_card(cuda_device, seed, best_fit):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk", [1, 2, 3, 64])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 64, 256, 640, 866])
 def test_chunked_kernel_matches_plain_on_the_card(cuda_device, chunk):
-    packed = to_device(_host_pack(100 + chunk), cuda_device)
-    S = packed.spot_free.shape[0]
+    """B3 is one launch per call, whatever its chunk count, with the raw
+    placements of its chunk loop; the widths past 64 run on S=2597, so
+    866 leaves a last chunk of 865 spots whose windows straddle."""
+    packed = to_device(_host_pack(100 + chunk, S=2597 if chunk > 64 else 0),
+                       cuda_device)
     before = ffd_kernels.LAUNCHES["B3"]
     got = ffd_kernels.plan_ffd_chunked(packed, chunk)
-    assert ffd_kernels.LAUNCHES["B3"] == before + -(-S // chunk)
+    assert ffd_kernels.LAUNCHES["B3"] == before + 1
     torch.cuda.synchronize()
     _assert_same(got, ffd_kernels.plan_ffd_chunked_plain(packed, chunk))
     _assert_same(got, plan_ffd(packed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_chunked_kernel_past_shared_memory_on_the_card(cuda_device, n):
+    """S=24,000 at R=4: two chunks of 12,000 spots pass a block's shared
+    memory and are read from device memory; four of 6,000 are staged
+    chunk by chunk."""
+    packed = to_device(_host_pack(9, S=24000, R=4), cuda_device)
+    chunk = -(-24000 // n)
+    g = ffd_kernels.card_geometry(packed, False, spot_chunk=chunk)
+    assert g.statics_in_smem == (n == 4)
+    got = ffd_kernels.plan_ffd_chunked(packed, chunk)
+    torch.cuda.synchronize()
+    _assert_same(got, ffd_kernels.plan_ffd_chunked_plain(packed, chunk))
 
 
 @pytest.mark.cuda
@@ -419,18 +569,57 @@ def test_stream_kernel_matches_plain_for_every_layout(cuda_device, layout):
 @pytest.mark.parametrize("layout", [CarryLayout("int16", "int8", "uint8"),
                                     CarryLayout()], ids=str)
 def test_stream_kernel_carry_in_device_memory(cuda_device, layout):
-    """The workspace path: at S=24,000 config 3's layout takes 264 KB a
-    lane and the wide one 672 KB, past a block's shared memory."""
+    """Past shared memory: at S=24,000 and R=4 the spot statics take
+    768,000 B and are read from device memory, while each lane's carry,
+    its K overlay entries in the layout's dtypes and its touched bitmap,
+    stays in shared memory (no workspace)."""
     big = to_device(
         _layout_pack(22, CarryLayout("int16", "int8", "uint8"), S=24000, R=4),
         cuda_device,
     )
-    index = torch.cuda.current_device()
-    assert not ffd_kernels.stream_state_fits_smem(layout, 4, 2, 24000, index)
-    _assert_same(
-        ffd_kernels.plan_stream_bf_kernel(big, layout=layout),
-        plan_ffd(big, best_fit=True),
-    )
+    g = ffd_kernels.card_geometry(big, True, layout=layout)
+    assert not g.statics_in_smem
+    assert g.smem_bytes == g.lanes_per_block * g.lane_bytes < 8192
+    got = ffd_kernels.plan_stream_bf_kernel(big, layout=layout)
+    torch.cuda.synchronize()
+    _assert_same(got, plan_ffd(big, best_fit=True))
+    _assert_same(got, plan_ffd_streamed(big, carry_chunks=3, layout=layout,
+                                        best_fit=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STRESS), ids=str)
+def test_stream_kernel_on_the_stress_packs(cuda_device, name):
+    """B4 with each stress pack's own carry layout, bit-identical to the
+    plain streamed best-fit and to B2."""
+    packed = to_device(STRESS[name], cuda_device)
+    layout = carry_layout(STRESS[name])
+    got = ffd_kernels.plan_stream_bf_kernel(packed, carry_chunks=3,
+                                            layout=layout)
+    torch.cuda.synchronize()
+    _assert_same(got, plan_ffd_streamed(packed, carry_chunks=3, layout=layout,
+                                        best_fit=True))
+    _assert_same(got, ffd_kernels.plan_ffd_kernel(packed, best_fit=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_every_stream_geometry_gives_the_same_answer(cuda_device, warps):
+    """B4 across lanes per block, warps per lane and the statics' place,
+    with K=130 entries of int16 counts."""
+    packed = to_device(STRESS["k130"], cuda_device)
+    layout = carry_layout(STRESS["k130"])
+    C, K, S, R, W, A = 24, 130, 200, 4, 1, 2
+    want = plan_ffd(packed, best_fit=True)
+    for L in (1, 3):
+        for in_smem in (True, False):
+            g = ffd_kernels.fixed_geometry(K, S, R, W, A, L, warps, in_smem,
+                                           layout)
+            feasible, chosen = ffd_kernels.launch_stream_raw(packed, layout, g)
+            torch.cuda.synchronize()
+            assert torch.equal(feasible, want.feasible)
+            assert torch.equal(torch.where(feasible[:, None], chosen, -1),
+                               want.assignment)
 
 
 @pytest.mark.cuda

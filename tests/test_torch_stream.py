@@ -13,6 +13,10 @@ import pytest
 import torch
 
 from k8s_spot_rescheduler_tpu.hot_programs import MAX_SHAPES
+from k8s_spot_rescheduler_tpu.models.tensors import (
+    PackedCluster as JaxPackedCluster,
+)
+from k8s_spot_rescheduler_tpu.ops.pallas_ffd import plan_stream_bf_pallas
 from k8s_spot_rescheduler_tpu.solver import carry as jcarry
 from k8s_spot_rescheduler_tpu.solver import memory as jmemory
 from k8s_spot_rescheduler_tpu.solver.ffd import (
@@ -24,6 +28,10 @@ from k8s_spot_rescheduler_tpu_torch.models.tensors import load_npz, to_device
 from k8s_spot_rescheduler_tpu_torch.ops import ffd_kernels
 from k8s_spot_rescheduler_tpu_torch.solver import carry as tcarry
 from k8s_spot_rescheduler_tpu_torch.solver import memory as tmemory
+from k8s_spot_rescheduler_tpu_torch.testing import (
+    STRESS_LAYOUTS,
+    overlay_stress_packs,
+)
 from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
     plan_ffd,
     plan_ffd_streamed,
@@ -313,3 +321,37 @@ def test_streamed_on_the_edge_packs(name):
             )
             _assert_same(want, wrapper(dev, carry_chunks=n, layout=lay))
     assert ffd_kernels.LAUNCHES == before
+
+
+STRESS = overlay_stress_packs(0)
+
+
+@pytest.mark.parametrize("name", list(STRESS))
+def test_streamed_best_fit_matches_the_pallas_stream_kernel_on_stress_packs(
+    name,
+):
+    """The plain version of B4 (the streamed best-fit) on each pack that
+    stresses the overlay, at its own carry layout, against the JAX
+    package's Pallas stream kernel in interpret mode: used at the int16
+    and uint16 edges, dcount at int8's guard, affinity bits 7, 15 and 31,
+    K distinct spots a lane; the B4 wrapper takes the same plain version
+    on CPU tensors."""
+    host = JaxPackedCluster(*STRESS[name])
+    lay = jcarry.carry_layout(host)
+    if name in STRESS_LAYOUTS:
+        assert tuple(lay) == STRESS_LAYOUTS[name]
+    tlay = tcarry.CarryLayout(*lay)
+    dev = _cpu(STRESS[name])
+    for n in (1, 3):
+        want = plan_stream_bf_pallas(
+            host, carry_chunks=n, layout=lay, interpret=True
+        )
+        _assert_same(
+            want,
+            plan_ffd_streamed(dev, carry_chunks=n, layout=tlay, best_fit=True),
+            f"n={n}",
+        )
+        _assert_same(
+            want,
+            ffd_kernels.plan_stream_bf_kernel(dev, carry_chunks=n, layout=tlay),
+        )
