@@ -26,7 +26,10 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    warm-up, CUDA events around the call, host work included) and its
    device time (``device_ms``: the mean over 20 calls of the time
    torch.profiler records in the kernel, null when it records none); B3
-   at the spot chunks of the streamed union's four-chunk first-fit;
+   at the spot chunks of the streamed union's four-chunk first-fit; and
+   B1-B4 past one lane's shared memory (``testing.past_smem_pack``,
+   K=2,200 at W=17), their lanes in the device-memory workspace,
+   bit-identical to their plain versions;
 3. the planning tick against the frozen answers: the drain schedule
    (horizon 32), the staged selection, a second tick through the
    resident delta cache after committing the schedule's first drain
@@ -53,7 +56,24 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    answers; the launch counts of this path must show B3 and B4 ran, B3
    once per first-fit call. B4 is timed at config 3 beside B2, its
    plain version and bound, with the union's passes and the streamed
-   tick and schedule.
+   tick and schedule;
+6. the controller at full width: the port's ``Rescheduler`` with
+   ``TorchSolverPlanner`` on the card drives each run of
+   ``testing.CONTROLLER_RUNS`` (config 3, 5 ticks with schedules on and
+   3 with ``schedule_horizon=0``; config 4, 3 ticks) from a fresh
+   ``generate_cluster(..., reschedule_evicted=True)`` whose digest must
+   equal the frozen one, and every tick must drain the node, evict the
+   pod UIDs and skip for the reason the JAX package's run did
+   (``data/ticks_seed0.json``), with B1 and B2 launched, no tick on the
+   fallback planner and the fallback counter at 0; each tick's latency
+   and its phase split (from the tick's span tree) are printed. After
+   each run's first plan, B1 and B2 are held bit-identical to their
+   plain versions (results and raw outputs) on the controller's own
+   resident pack and on its first staged chunk; the first run's pack
+   gives B1's and B2's numbers in the ``kernels`` line. Then
+   ``python -m k8s_spot_rescheduler_tpu_torch`` (``testing.CLI_ARGS``)
+   runs as a subprocess and must exit 0 draining what the frozen CLI
+   run drained, with ``planner_fallback_total=0``.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -367,13 +387,13 @@ def contended_phase(np, torch, fk, host, ans, kind, card) -> str:
     returns the line of its times."""
     from k8s_spot_rescheduler_tpu_torch.models.tensors import to_device
     from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
-        PlannerConfig,
         TorchSolverPlanner,
     )
     from k8s_spot_rescheduler_tpu_torch.solver.fallback import (
         with_best_fit_fallback,
         with_repair,
     )
+    from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
     from k8s_spot_rescheduler_tpu_torch.solver.ffd import plan_ffd
     from k8s_spot_rescheduler_tpu_torch.solver.repair import plan_repair
 
@@ -414,7 +434,8 @@ def contended_phase(np, torch, fk, host, ans, kind, card) -> str:
     got = np.concatenate([[sel.index, int(sel.found), sel.n_feasible], sel.row])
     check(np.array_equal(got, ans["staged_selection"]),
           "contended: staged selection != the JAX package's")
-    fused = TorchSolverPlanner(PlannerConfig(staged_chunk_lanes=0), device="cuda")
+    fused = TorchSolverPlanner(ReschedulerConfig(staged_chunk_lanes=0),
+                               device="cuda")
     sel_f = fused.plan_packed(host)
     got = np.concatenate([[sel_f.index, int(sel_f.found), sel_f.n_feasible],
                           sel_f.row])
@@ -696,6 +717,297 @@ def stream_phase(np, torch, fk, timings, kind, card, problems) -> dict:
     return totals
 
 
+def past_smem_phase(np, torch, fk) -> list:
+    """B1, B2, B3 (2 spot chunks) and B4 (the pack's carry layout) past
+    one lane's shared memory (``testing.past_smem_pack``): each launches
+    with its lanes in the device-memory workspace and is bit-identical
+    to its plain version. Returns the lines of what was checked."""
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import to_device
+    from k8s_spot_rescheduler_tpu_torch.solver.carry import carry_layout
+    from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
+        plan_ffd,
+        plan_ffd_streamed,
+    )
+    from k8s_spot_rescheduler_tpu_torch.testing import (
+        PAST_SMEM_SHAPE,
+        past_smem_pack,
+    )
+
+    host = past_smem_pack(0)
+    dev = to_device(host, "cuda")
+    lay = carry_layout(host)
+    chunk = -(-host.spot_free.shape[0] // 2)
+    limit = fk._smem_limit("ffd", torch.cuda.current_device())
+    cases = (
+        ("B1", {}, lambda: fk.plan_ffd_kernel(dev), lambda: plan_ffd(dev)),
+        ("B2", {}, lambda: fk.plan_ffd_kernel(dev, best_fit=True),
+         lambda: plan_ffd(dev, best_fit=True)),
+        ("B3", {"spot_chunk": chunk}, lambda: fk.plan_ffd_chunked(dev, chunk),
+         lambda: fk.plan_ffd_chunked_plain(dev, chunk)),
+        ("B4", {"layout": lay},
+         lambda: fk.plan_stream_bf_kernel(dev, carry_chunks=2, layout=lay),
+         lambda: plan_ffd_streamed(dev, carry_chunks=2, layout=lay,
+                                   best_fit=True)),
+    )
+    lines = []
+    for name, kw, kern, plain in cases:
+        best_fit = name in ("B2", "B4")
+        g = fk.card_geometry(dev, best_fit, **kw)
+        check(not g.lanes_in_smem and g.lane_bytes > limit,
+              f"past shared memory: {name} kept its lanes in shared memory")
+        before = fk.LAUNCHES[name]
+        got = kern()
+        check(fk.LAUNCHES[name] == before + 1, f"{name} did not launch once")
+        want = plain()
+        torch.cuda.synchronize()
+        check(same(torch, got, want) == 0,
+              f"past shared memory: {name} != its plain version")
+        blocks = fk.grid_blocks(dev, g, best_fit, kw.get("layout"))
+        lines.append(
+            f"[2] past shared memory {name}: {g.lanes_per_block} lanes x "
+            f"{g.warps_per_lane} warps a block, {g.lane_bytes} B a lane "
+            f"(> {limit} B) in a device-memory workspace of "
+            f"{blocks * g.lanes_per_block * g.lane_bytes} B ({blocks} blocks), "
+            f"statics ({g.statics_bytes} B) in "
+            f"{'shared' if g.statics_in_smem else 'device'} memory, "
+            f"{g.smem_bytes} B of shared memory a block; feasible "
+            f"{int(got.feasible.sum())} of {int(host.cand_valid.sum())} "
+            f"valid lanes; bit-identical to plain"
+        )
+    C, K, S, R, W, A = PAST_SMEM_SHAPE
+    lines.append(f"[2] past-shared-memory pack C={C} K={K} S={S} R={R} W={W} "
+                 f"A={A}, carry layout {tuple(lay)}: B1-B4 bit-identical to "
+                 f"their plain versions with their lanes in device memory")
+    return lines
+
+
+# span names of a controller tick's trace (utils/tracing.SPAN_NAMES), in
+# the order the phase split prints them
+TICK_SPANS = ("observe", "plan.pack", "plan.delta-upload", "plan-dispatch",
+              "plan-fetch", "plan.schedule", "observe-metrics", "actuate")
+
+
+def span_sums(trace: dict) -> dict:
+    """{span name: total ms} over a tick trace's span tree."""
+    out = {}
+    stack = list(trace.get("spans", ()))
+    while stack:
+        sp = stack.pop()
+        out[sp["name"]] = out.get(sp["name"], 0.0) + sp["dur_ms"]
+        stack.extend(sp.get("spans", ()))
+    return out
+
+
+def controller_pack_check(np, torch, fk, planner, name):
+    """B1 and B2 on the controller's own resident pack
+    (``planner._device_packed``: the pads, K and affinity layout the
+    controller gives them) and on its first staged chunk: results and
+    raw outputs bit-identical to the plain versions. The launches made
+    here are the comparison's, not the run's: the counts are restored
+    before the controller ticks on. Returns a copy of the pack (device,
+    host) for ``controller_pack_timings``."""
+    from k8s_spot_rescheduler_tpu_torch.solver.ffd import ffd_raw, plan_ffd
+    from k8s_spot_rescheduler_tpu_torch.solver.select import _lane_slice
+
+    saved = dict(fk.LAUNCHES)
+    dev, host = planner._device_packed, planner._host_prev
+    check(dev is not None and host is not None,
+          f"{name}: the first tick left no resident pack")
+    lanes = planner.config.staged_chunk_lanes or dev.slot_req.shape[0]
+    for label, pack in (("pack", dev),
+                        (f"{lanes}-lane chunk", _lane_slice(dev, 0, lanes))):
+        for bf in (False, True):
+            valid = pack.cand_valid
+            kern = fk.plan_ffd_kernel(pack, best_fit=bf)
+            feasible, chosen = fk.launch_raw(pack, bf)
+            want_f, want_c = ffd_raw(pack, bf)
+            check(same(torch, kern, plan_ffd(pack, best_fit=bf)) == 0,
+                  f"{name}: B{2 if bf else 1} != plain on the controller's "
+                  f"{label}")
+            check(torch.equal(feasible, want_f)
+                  and torch.equal(chosen[valid], want_c[valid])
+                  and bool((chosen[~valid] == -1).all()),
+                  f"{name}: B{2 if bf else 1} raw outputs != plain on the "
+                  f"controller's {label}")
+    C, K, R = dev.slot_req.shape
+    log(f"[6] {name}: controller pack C={C} K={K} S={dev.spot_free.shape[0]} "
+        f"R={R} W={dev.spot_taints.shape[1]} A={dev.spot_aff.shape[1]} and "
+        f"its {lanes}-lane chunk: B1 and B2 results and raw outputs "
+        f"bit-identical to plain; B1 {geometry_line(fk, dev, False)}; "
+        f"B2 {geometry_line(fk, dev, True)}")
+    fk.LAUNCHES.update(saved)
+    # the resident pack takes the next ticks' deltas in place
+    return dev._replace(**{f: t.clone() for f, t in dev._asdict().items()}), host
+
+
+def controller_pack_timings(np, torch, fk, dev, host, name, lanes, kind,
+                            card) -> dict:
+    """B1's and B2's numbers for the ``kernels`` line, on the
+    controller pack ``dev`` (``host`` its host pack) that
+    ``controller_pack_check`` copied, timed after the controller runs
+    (the profiler's threads then meet no tick), uncounted."""
+    from k8s_spot_rescheduler_tpu_torch.solver.ffd import plan_ffd
+    from k8s_spot_rescheduler_tpu_torch.solver.select import _lane_slice
+
+    saved = dict(fk.LAUNCHES)
+    chunk = _lane_slice(dev, 0, lanes)
+    C, K, _ = dev.slot_req.shape
+    S = dev.spot_free.shape[0]
+    _, raw_ff = fk.launch_raw(dev, False)
+    raw_ff = raw_ff.cpu().numpy()
+    timings = {}
+    for bf, what, replaces in (
+        (False, "first-fit", "k8s_spot_rescheduler_tpu/ops/pallas_ffd.py:85"),
+        (True, "best-fit", "k8s_spot_rescheduler_tpu/ops/pallas_ffd.py:156"),
+    ):
+        kid = "B2" if bf else "B1"
+        bound_ms, bound_by = ffd_bound(np, host, None if bf else raw_ff, bf)
+        err = same(torch, fk.plan_ffd_kernel(dev, best_fit=bf),
+                   plan_ffd(dev, best_fit=bf))
+        check(err == 0, f"{name}: {kid} != plain on the copied pack")
+
+        def kern(bf=bf):
+            return fk.plan_ffd_kernel(dev, best_fit=bf)
+
+        def plain(bf=bf):
+            return plan_ffd(dev, best_fit=bf)
+
+        ms = time_ms(torch, kern)
+        dev_ms = device_ms(torch, kern, FFD_KERNELS)
+        plain_ms = time_ms(torch, plain, reps=5, warmup=1)
+        chunk_ms = time_ms(torch, lambda bf=bf: fk.plan_ffd_kernel(
+            chunk, best_fit=bf))
+        timings[kid] = dict(
+            name=kid, what=what, route="cuda",
+            source="k8s_spot_rescheduler_tpu_torch/ops/csrc/ffd.cu",
+            replaces=replaces, max_abs_err=err, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, pack=f"{name} controller pack C={C} K={K} S={S}",
+        )
+        log(f"[6] {kid} ({what}) on the {name} controller pack: {ms:.4f} ms "
+            f"a wrapper call (CUDA events), {fmt_ms(dev_ms)} ms on the device "
+            f"(profiler), {plain_ms:.4f} ms plain, bound {bound_ms:.6f} ms "
+            f"({bound_by}); {chunk_ms:.4f} ms a call on the {lanes}-lane "
+            f"chunk; on {kind} [{card}]")
+    fk.LAUNCHES.update(saved)
+    return timings
+
+
+def controller_phase(np, torch, fk, kind, card, here):
+    """Phase 6: the port's controller at full width on the card against
+    the JAX package's frozen runs, then the CLI as a subprocess. Returns
+    the launch counts of the controller runs (reset just before each
+    run, read just after, summed), and B1's and B2's timings on the
+    first run's controller pack (``controller_pack_check``)."""
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
+        CONFIGS,
+        generate_cluster,
+    )
+    from k8s_spot_rescheduler_tpu_torch.loop import flight
+    from k8s_spot_rescheduler_tpu_torch.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
+    from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
+        TorchSolverPlanner,
+    )
+    from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
+
+    frozen = testing.load_ticks()
+    totals = {name: 0 for name in fk.LAUNCHES}
+    timed = None  # (name, lanes, device pack, host pack) of the first run
+    fallbacks0 = metrics.robustness_snapshot()["planner_fallback"]
+    for name, config_id, ticks, horizon in testing.CONTROLLER_RUNS:
+        want = frozen["runs"][name]
+        spec = CONFIGS[config_id]
+        t0 = time.perf_counter()
+        client = generate_cluster(spec, frozen["seed"], reschedule_evicted=True)
+        gen_s = time.perf_counter() - t0
+        digest = testing.cluster_digest(client)
+        check(digest == want["digest"],
+              f"{name}: generated cluster digest {digest[:16]} != frozen "
+              f"{want['digest'][:16]} (a numpy stream difference, not a "
+              f"drain)")
+        cfg = testing.controller_config(ReschedulerConfig, spec, horizon)
+        planner = TorchSolverPlanner(cfg, device="cuda")
+        r = Rescheduler(client, planner, cfg, clock=client.clock,
+                        recorder=client)
+        fk.reset_launch_counts()
+        records, lines = [], []
+        checked = False
+        for tick in range(ticks):
+            t0 = time.perf_counter()
+            records += testing.run_ticks(r, client, 1)
+            torch.cuda.synchronize()
+            tick_ms = (time.perf_counter() - t0) * 1e3
+            if not checked and planner._device_packed is not None:
+                # the kernels against their plain versions at the shapes
+                # this run gives them (uncounted), after its first plan
+                dev, host = controller_pack_check(np, torch, fk, planner,
+                                                  name)
+                if timed is None:
+                    timed = (name, cfg.staged_chunk_lanes, dev, host)
+                checked = True
+            spans = span_sums((flight.last_tick() or {}).get("trace", {}))
+            named = sum(spans.get(n, 0.0) for n in (
+                "observe", "plan-dispatch", "plan-fetch", "plan.schedule",
+                "observe-metrics", "actuate"))
+            lines.append(
+                f"[6] {name} tick {tick + 1}: {tick_ms:.1f} ms; "
+                + ", ".join(f"{n} {spans.get(n, 0.0):.1f}" for n in TICK_SPANS)
+                + f", rest (schedule step re-pack + validate, gates) "
+                f"{tick_ms - named:.1f} ms; drained {records[-1]['drained']}"
+            )
+        launches = dict(fk.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] += v
+        for line in lines:
+            log(line + f" on {kind} [{card}]")
+        for i, (got, exp) in enumerate(zip(records, want["records"])):
+            # the eviction fan-out is concurrent: UIDs compare as sets
+            exp = dict(exp, evicted=sorted(exp["evicted"]))
+            check(got == exp, f"{name} tick {i + 1}: {got['drained']} "
+                  f"evicting {len(got['evicted'])} pods (skipped "
+                  f"{got['skipped']!r}) != the JAX package's {exp['drained']} "
+                  f"evicting {len(exp['evicted'])} (skipped {exp['skipped']!r})")
+        check(len(records) == len(want["records"]), f"{name}: tick count")
+        check(checked, f"{name}: no tick planned on the card")
+        check(not any(rec["planner_fallback"] for rec in records),
+              f"{name}: a tick ran on the fallback planner")
+        check(launches["B1"] > 0 and launches["B2"] > 0,
+              f"{name}: B1/B2 not launched by the controller {launches}")
+        log(f"[6] {name} (config {config_id}, {ticks} ticks, schedule_horizon="
+            f"{horizon}): digest == frozen, generated in {gen_s:.1f} s; every "
+            f"tick's drain, evicted pod UIDs and skip == the JAX package's "
+            f"({sum(len(rec['evicted']) for rec in records)} pods evicted); "
+            f"launches {launches}; fetches_total={planner.fetches_total}, "
+            f"schedule_lens={planner.schedule_lens}")
+    check(metrics.robustness_snapshot()["planner_fallback"] == fallbacks0,
+          "the planner-fallback counter moved during the controller runs")
+
+    argv = [sys.executable, "-m", "k8s_spot_rescheduler_tpu_torch",
+            *testing.CLI_ARGS]
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    drained = re.findall(r"tick \d+: drained=(\[.*?\])", proc.stderr)
+    want = [repr(rec["drained"]) for rec in frozen["cli"]["records"]]
+    check(drained == want, f"CLI drained {drained}, the JAX package {want}")
+    fallbacks = re.findall(r"planner_fallback_total=(\d+)", proc.stderr)
+    check(fallbacks == ["0"],
+          f"CLI planner_fallback_total {fallbacks}: a tick ran on the host")
+    log(f"[6] python -m k8s_spot_rescheduler_tpu_torch "
+        f"{' '.join(testing.CLI_ARGS)}: exit 0 in {cli_s:.1f} s, drained "
+        f"{', '.join(drained)} == the JAX package's CLI run, "
+        f"planner_fallback_total=0")
+    name, lanes, dev, host = timed
+    return totals, controller_pack_timings(np, torch, fk, dev, host, name,
+                                           lanes, kind, card)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -716,12 +1028,12 @@ def main() -> int:
         return 2
     from k8s_spot_rescheduler_tpu_torch.ops import ffd_kernels as fk
     from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
-        PlannerConfig,
         TorchSolverPlanner,
     )
     from k8s_spot_rescheduler_tpu_torch.solver.ffd import plan_ffd
     from k8s_spot_rescheduler_tpu_torch.solver.schedule import commit_step_host
     from k8s_spot_rescheduler_tpu_torch.testing import random_pack
+    from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -797,6 +1109,8 @@ def main() -> int:
         f"and B2 raw outputs, results and B3 bit-identical to the plain "
         f"versions")
     log(chunk_phase(np, torch, fk))
+    for line in past_smem_phase(np, torch, fk):
+        log(line)
 
     plain_ff = plan_ffd(dev3)
     plain_bf = plan_ffd(dev3, best_fit=True)
@@ -886,7 +1200,8 @@ def main() -> int:
         f"delta tick ({upload2[0]} lanes, {upload2[2]} B) == full upload == "
         f"schedule step 2; fetches_total={planner.fetches_total}")
 
-    fused = TorchSolverPlanner(PlannerConfig(staged_chunk_lanes=0), device="cuda")
+    fused = TorchSolverPlanner(ReschedulerConfig(staged_chunk_lanes=0),
+                               device="cuda")
     sel_f = fused.plan_packed(host3)
     got = np.concatenate([[sel_f.index, int(sel_f.found), sel_f.n_feasible], sel_f.row])
     check(np.array_equal(got, ans3["selection"]),
@@ -951,10 +1266,15 @@ def main() -> int:
          ("contended", hostc, ansc)),
     )
 
+    tick_launches, tick_timings = controller_phase(
+        np, torch, fk, kind, card, here)
+    # B1/B2's row: the path whose launches it counts, timed on its pack
+    timings.update(tick_timings)
+
     out = []
     for name, launches, path in (
-        ("B1", main_launches["B1"], "main"),
-        ("B2", main_launches["B2"], "main"),
+        ("B1", tick_launches["B1"], "controller tick"),
+        ("B2", tick_launches["B2"], "controller tick"),
         ("B3", stream_launches["B3"], "streamed union"),
         ("B4", stream_launches["B4"], "streamed union"),
     ):
@@ -962,6 +1282,11 @@ def main() -> int:
         row.pop("what")
         row["launches"] = launches
         row["path"] = path
+        row["launches_by_path"] = {
+            "controller tick": tick_launches[name],
+            "planning tick (phase 3)": main_launches[name],
+            "streamed union": stream_launches[name],
+        }
         out.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -76,8 +76,10 @@ int variant_of(int best_fit, int P) {
   }
 }
 
-bool fixed_shape(int R, int W, int A) {
-  return R == kFixedR && W == kFixedW && A == kFixedA;
+// The FIXED instances take the fixed R/W/A with the lanes in shared
+// memory; lanes in the workspace take the generic ones.
+int fixed_shape(int R, int W, int A, int lanes_in_ws) {
+  return R == kFixedR && W == kFixedW && A == kFixedA && !lanes_in_ws;
 }
 
 std::mutex g_mutex;
@@ -99,20 +101,23 @@ int ffd_max_dynamic_smem(int device) {
   return max_dynamic_smem(device, fns, n);
 }
 
-// Blocks of the persistent grid for C lanes in a geometry: as many as are
+// Blocks of the persistent grid for C lanes in a geometry (`lanes_in_ws`
+// 1 when the lanes live in the device-memory workspace): as many as are
 // resident at once on the current device, at most one per L lanes; a
 // negative cudaError_t on error.
 int ffd_blocks(int C, int R, int W, int A, int best_fit, int lanes_per_block,
-               int warps_per_lane, int statics_in_smem, int smem_bytes) {
+               int warps_per_lane, int statics_in_smem, int smem_bytes,
+               int lanes_in_ws) {
   const int L = lanes_per_block;
   const int P = warps_per_lane;
   const int variant = variant_of(best_fit, P);
   if (C < 1 || L < 1 || variant < 0 || L > kMaxThreads / (32 * P) ||
       (P > 1 && L > kMaxNamedLanes) ||
-      (statics_in_smem != 0 && statics_in_smem != 1) || smem_bytes < 0)
+      (statics_in_smem != 0 && statics_in_smem != 1) || smem_bytes < 0 ||
+      (lanes_in_ws != 0 && lanes_in_ws != 1))
     return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  const int fixed = fixed_shape(R, W, A);
+  const int fixed = fixed_shape(R, W, A, lanes_in_ws);
   const int resident = resident_blocks(
       reinterpret_cast<const void*>(kKernels[fixed][statics_in_smem][variant]),
       g_state[fixed][statics_in_smem][variant], g_mutex, L * P * 32,
@@ -127,41 +132,50 @@ int ffd_blocks(int C, int R, int W, int A, int best_fit, int lanes_per_block,
 // `lanes_per_block` lanes of `warps_per_lane` warps each, a chunk's
 // statics in shared memory or read from device memory, and `smem_bytes`
 // of dynamic shared memory, which must be what that geometry takes; the
-// grid is ffd_blocks().
+// grid is ffd_blocks(). `lane_ws` is null, or, where one lane's state
+// passes a block's shared memory, a device-memory workspace of
+// `lane_ws_words` 32-bit words holding the grid's lanes (blocks x
+// lanes_per_block x lane_words); `smem_bytes` then counts no lane.
 int ffd_launch(const float* slot_req, const uint8_t* slot_valid,
                const int32_t* slot_tol, const int32_t* slot_aff,
                const uint8_t* cand_valid, const float* spot_free,
                const int32_t* spot_count, const int32_t* spot_max_pods,
                const int32_t* spot_taints, const uint8_t* spot_ok,
                const int32_t* spot_aff, uint8_t* feasible, int32_t* chosen,
-               int C, int K, int R, int W, int A, int S, int spot_chunk,
-               int best_fit, int lanes_per_block, int warps_per_lane,
-               int statics_in_smem, int smem_bytes, void* stream) {
+               int32_t* lane_ws, int C, int K, int R, int W, int A, int S,
+               int spot_chunk, int best_fit, int lanes_per_block,
+               int warps_per_lane, int statics_in_smem, int smem_bytes,
+               int lane_ws_words, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (R < 1 || W < 0 || A < 0 || S < 0 || K < 0 || spot_chunk < 1 ||
       (best_fit && spot_chunk < S) ||
       variant_of(best_fit, warps_per_lane) < 0 || lanes_per_block < 1)
     return (int)cudaErrorInvalidValue;
   const int Sw = S < spot_chunk ? S : spot_chunk;
+  // one lane's words; the lanes take shared memory unless in lane_ws
+  const long long lw =
+      lane_words(K, R, W, A, Sw, warps_per_lane, AbsOverlay::words(K, R, A, 0));
   const long long want =
       4 * ((statics_in_smem ? statics_words(Sw, R, W, A) : 0) +
-           (long long)lanes_per_block *
-               lane_words(K, R, W, A, Sw, warps_per_lane,
-                          AbsOverlay::words(K, R, A, 0)));
+           (lane_ws != nullptr ? 0LL : lanes_per_block * lw));
   if (want != smem_bytes) return (int)cudaErrorInvalidValue;
+  const int in_ws = lane_ws != nullptr;
   const int blocks = ffd_blocks(C, R, W, A, best_fit, lanes_per_block,
-                                warps_per_lane, statics_in_smem, smem_bytes);
+                                warps_per_lane, statics_in_smem, smem_bytes,
+                                in_ws);
   if (blocks < 0) return -blocks;
+  if (lane_ws != nullptr && blocks * lanes_per_block * lw > lane_ws_words)
+    return (int)cudaErrorInvalidValue;
   int codes = 0;
   void* args[] = {&slot_req,    &slot_valid, &slot_tol,      &slot_aff,
                   &cand_valid,  &spot_free,  &spot_count,    &spot_max_pods,
                   &spot_taints, &spot_ok,    &spot_aff,      &feasible,
-                  &chosen,      &C,          &K,             &R,
-                  &W,           &A,          &S,             &spot_chunk,
-                  &lanes_per_block,          &codes};
+                  &chosen,      &lane_ws,    &C,             &K,
+                  &R,           &W,          &A,             &S,
+                  &spot_chunk,  &lanes_per_block,            &codes};
   const cudaError_t err = cudaLaunchKernel(
       reinterpret_cast<const void*>(
-          kKernels[fixed_shape(R, W, A)][statics_in_smem]
+          kKernels[fixed_shape(R, W, A, in_ws)][statics_in_smem]
                   [variant_of(best_fit, warps_per_lane)]),
       dim3(blocks), dim3(lanes_per_block * warps_per_lane * 32), args,
       (size_t)smem_bytes, static_cast<cudaStream_t>(stream));

@@ -14,7 +14,7 @@
 //    taints [W][S] and aff [A][S]. Lane t of a warp reads spot 32w+t, so
 //    a window of 32 spots is one conflict-free read per plane. Where the
 //    statics do not fit beside the lanes' state, the same code reads them
-//    from device memory (L2) instead; there is no workspace.
+//    from device memory (L2) instead.
 // 2. Each lane holds only what it changed: an overlay of up to K
 //    touched-spot entries (the entry of slot k is created by slot k) and
 //    a touched bitmap of ceil(S/32) words. What an entry holds is the
@@ -44,6 +44,14 @@
 //    resident at once, lane slot j of block b solving lanes
 //    b + G*(j + L*i). A block whose lanes are all invalid writes its
 //    outputs and returns before staging.
+// 7. A lane's state (slot rows, overlay, touched bitmap, partials) sits
+//    in shared memory after the staged statics. Where one lane alone
+//    passes a block's shared memory (K in the thousands), the wrapper
+//    passes a device-memory workspace of G*L lanes instead and block b
+//    carves its L lanes from slots [b*L, (b+1)*L) of it: the same code
+//    on generic pointers, read through L1/L2 like the statics past
+//    shared memory. The lane's barriers (__syncwarp, bar.sync) order
+//    its global accesses as they order shared ones.
 
 #pragma once
 
@@ -436,7 +444,8 @@ struct DeltaOverlay {
   }
 };
 
-// One lane's state in shared memory, lane_words() words in this order.
+// One lane's state in shared memory (or in the device-memory workspace),
+// lane_words() words in this order.
 template <class Overlay>
 struct Lane {
   float* req;                 // [K][R] slot requests
@@ -652,7 +661,9 @@ __device__ __forceinline__ bool solve_lane(const Statics& st,
 // first-fit is given Sc < S); for each it stages the chunk's statics
 // once, then its lane j (warps [j*P, (j+1)*P)) solves lanes
 // c = b + G*(j + L*i), i = 0, 1, ..., that still have pods to place.
-// `codes` are the overlay's dtype codes (B4).
+// `codes` are the overlay's dtype codes (B4); `lane_ws` is the lanes'
+// device-memory workspace, or nullptr to carve them from shared memory
+// (always nullptr for the FIXED instances).
 template <bool BEST_FIT, int P, bool SMEM_STATICS, bool FIXED, class Overlay>
 __global__ void __launch_bounds__(kMaxThreads)
 greedy_kernel(const float* __restrict__ slot_req,          // [C, K, R]
@@ -668,6 +679,7 @@ greedy_kernel(const float* __restrict__ slot_req,          // [C, K, R]
               const int32_t* __restrict__ spot_aff,        // [S, A]
               uint8_t* __restrict__ feasible,              // [C]
               int32_t* __restrict__ chosen,                // [C, K]
+              int32_t* __restrict__ lane_ws,  // [G*L lanes] or nullptr
               int C, int K, int R, int W, int A, int S, int Sc, int L,
               int codes) {
   extern __shared__ __align__(16) int32_t smem[];
@@ -697,66 +709,88 @@ greedy_kernel(const float* __restrict__ slot_req,          // [C, K, R]
   const int jw = warp % P;  // warp within the lane
   const int gt = jw * 32 + lane;
   const long long ov_words = Overlay::words(K, R, A, codes);
-  int32_t* lanes = smem + (SMEM_STATICS ? statics_words(Sw, R, W, A) : 0);
-  const Lane<Overlay> ls =
-      carve<Overlay>(lanes + (size_t)j * lane_words(K, R, W, A, Sw, P, ov_words),
-                     K, R, W, A, Sw, P, codes);
+  const long long lw = lane_words(K, R, W, A, Sw, P, ov_words);
 
-  for (int q = 0; q < n_chunks; ++q) {
-    const int off = q * Sc;
-    const int n = S - off < Sc ? S - off : Sc;  // spots of this chunk
-    if (q > 0) {
-      // `feasible` marks a lane done; the block stops once all are
-      int left = 0;
-      for (int i = tid; i < n_lanes; i += T) {
-        const int c = b + i * G;
-        left |= cand_valid[c] && !feasible[c];
-      }
-      if (!__syncthreads_or(left)) break;
-    }
-    // the chunk's statics, staged once for the block's lanes
-    using Statics = typename std::conditional<SMEM_STATICS, SmemStatics,
-                                              GlobalStatics>::type;
-    Statics st;
-    if constexpr (SMEM_STATICS) {
-      st = stage_statics(smem, sp, off, n, R, W, A);
-    } else {
-      st = global_statics(sp, off, R, W, A);
-    }
-    __syncthreads();
+  // The chunk loop over one lane slot carved from `lanes`. Called with
+  // shared memory or with the device-memory workspace: each call is
+  // inlined on its own, so the shared-memory call keeps its
+  // shared-memory loads and stores, which a pointer that could be
+  // either would turn into generic ones. Only the generic (!FIXED)
+  // instances compile the workspace call: the launches pick them
+  // whenever `lane_ws` is passed, which only K in the thousands needs.
+  auto run = [&](int32_t* lanes) {
+    const Lane<Overlay> ls =
+        carve<Overlay>(lanes + (size_t)j * lw, K, R, W, A, Sw, P, codes);
 
-    for (int i = j; i < n_lanes; i += L) {  // uniform across the lane's warps
-      const int c = b + i * G;
-      int32_t* chosen_c = chosen + (size_t)c * K;
-      if (q == 0) {
-        if (jw == 0)
-          for (int k = lane; k < K; k += 32) chosen_c[k] = -1;
-        if (!cand_valid[c]) {
-          if (jw == 0 && lane == 0) feasible[c] = 0;
-          continue;
+    for (int q = 0; q < n_chunks; ++q) {
+      const int off = q * Sc;
+      const int n = S - off < Sc ? S - off : Sc;  // spots of this chunk
+      if (q > 0) {
+        // `feasible` marks a lane done; the block stops once all are
+        int left = 0;
+        for (int i = tid; i < n_lanes; i += T) {
+          const int c = b + i * G;
+          left |= cand_valid[c] && !feasible[c];
         }
-      } else if (!cand_valid[c] || feasible[c]) {
-        continue;  // nothing left to place
+        if (!__syncthreads_or(left)) break;
       }
-      // stage the lane's slot rows (the pods still unplaced) and clear
-      // its overlay
-      const size_t ck = (size_t)c * K;
-      for (int x = gt; x < K * R; x += 32 * P) ls.req[x] = slot_req[ck * R + x];
-      for (int x = gt; x < K * W; x += 32 * P) ls.tol[x] = slot_tol[ck * W + x];
-      for (int x = gt; x < K * A; x += 32 * P) ls.saff[x] = slot_aff[ck * A + x];
-      for (int x = gt; x < K; x += 32 * P) {
-        ls.valid[x] = slot_valid[ck + x] && (q == 0 || chosen_c[x] < 0);
-        ls.ent_idx[x] = -1;
+      // the chunk's statics, staged once for the block's lanes
+      using Statics = typename std::conditional<SMEM_STATICS, SmemStatics,
+                                                GlobalStatics>::type;
+      Statics st;
+      if constexpr (SMEM_STATICS) {
+        st = stage_statics(smem, sp, off, n, R, W, A);
+      } else {
+        st = global_statics(sp, off, R, W, A);
       }
-      for (int x = gt; x < (n + 31) / 32; x += 32 * P) ls.touched[x] = 0u;
-      lane_sync<P>(j);  // rows staged, chosen cleared
-      const bool feas = solve_lane<BEST_FIT, P, FIXED>(st, ls, j, jw, chosen_c,
-                                                       off, K, R, W, A, n);
-      if (jw == 0 && lane == 0 && (q == 0 || feas)) feasible[c] = feas ? 1 : 0;
-      lane_sync<P>(j);  // done with the rows before the next lane's
+      __syncthreads();
+
+      // uniform across the lane's warps
+      for (int i = j; i < n_lanes; i += L) {
+        const int c = b + i * G;
+        int32_t* chosen_c = chosen + (size_t)c * K;
+        if (q == 0) {
+          if (jw == 0)
+            for (int k = lane; k < K; k += 32) chosen_c[k] = -1;
+          if (!cand_valid[c]) {
+            if (jw == 0 && lane == 0) feasible[c] = 0;
+            continue;
+          }
+        } else if (!cand_valid[c] || feasible[c]) {
+          continue;  // nothing left to place
+        }
+        // stage the lane's slot rows (the pods still unplaced) and clear
+        // its overlay
+        const size_t ck = (size_t)c * K;
+        for (int x = gt; x < K * R; x += 32 * P)
+          ls.req[x] = slot_req[ck * R + x];
+        for (int x = gt; x < K * W; x += 32 * P)
+          ls.tol[x] = slot_tol[ck * W + x];
+        for (int x = gt; x < K * A; x += 32 * P)
+          ls.saff[x] = slot_aff[ck * A + x];
+        for (int x = gt; x < K; x += 32 * P) {
+          ls.valid[x] = slot_valid[ck + x] && (q == 0 || chosen_c[x] < 0);
+          ls.ent_idx[x] = -1;
+        }
+        for (int x = gt; x < (n + 31) / 32; x += 32 * P) ls.touched[x] = 0u;
+        lane_sync<P>(j);  // rows staged, chosen cleared
+        const bool feas = solve_lane<BEST_FIT, P, FIXED>(
+            st, ls, j, jw, chosen_c, off, K, R, W, A, n);
+        if (jw == 0 && lane == 0 && (q == 0 || feas))
+          feasible[c] = feas ? 1 : 0;
+        lane_sync<P>(j);  // done with the rows before the next lane's
+      }
+      // done with the chunk's statics
+      if (q + 1 < n_chunks) __syncthreads();
     }
-    if (q + 1 < n_chunks) __syncthreads();  // done with the chunk's statics
+  };
+  if constexpr (!FIXED) {
+    if (lane_ws != nullptr) {
+      run(lane_ws + (size_t)b * L * lw);
+      return;
+    }
   }
+  run(smem + (SMEM_STATICS ? statics_words(Sw, R, W, A) : 0));
 }
 
 // Per instance and device: the dynamic shared memory allowed so far

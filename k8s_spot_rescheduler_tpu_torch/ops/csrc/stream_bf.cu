@@ -75,8 +75,10 @@ int warp_choice(int P) {
   }
 }
 
-bool fixed_shape(int R, int W, int A) {
-  return R == kFixedR && W == kFixedW && A == kFixedA;
+// The FIXED instances take the fixed R/W/A with the lanes in shared
+// memory; lanes in the workspace take the generic ones.
+int fixed_shape(int R, int W, int A, int lanes_in_ws) {
+  return R == kFixedR && W == kFixedW && A == kFixedA && !lanes_in_ws;
 }
 
 bool valid_codes(int u, int n, int a) {
@@ -106,16 +108,17 @@ int stream_bf_max_dynamic_smem(int device) {
 // ffd_blocks(); a negative cudaError_t on error.
 int stream_bf_blocks(int C, int R, int W, int A, int lanes_per_block,
                      int warps_per_lane, int statics_in_smem,
-                     int smem_bytes) {
+                     int smem_bytes, int lanes_in_ws) {
   const int L = lanes_per_block;
   const int P = warps_per_lane;
   const int choice = warp_choice(P);
   if (C < 1 || L < 1 || choice < 0 || L > kMaxThreads / (32 * P) ||
       (P > 1 && L > kMaxNamedLanes) ||
-      (statics_in_smem != 0 && statics_in_smem != 1) || smem_bytes < 0)
+      (statics_in_smem != 0 && statics_in_smem != 1) || smem_bytes < 0 ||
+      (lanes_in_ws != 0 && lanes_in_ws != 1))
     return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  const int fixed = fixed_shape(R, W, A);
+  const int fixed = fixed_shape(R, W, A, lanes_in_ws);
   const int resident = resident_blocks(
       reinterpret_cast<const void*>(kKernels[fixed][statics_in_smem][choice]),
       g_state[fixed][statics_in_smem][choice], g_mutex, L * P * 32,
@@ -130,43 +133,51 @@ int stream_bf_blocks(int C, int R, int W, int A, int lanes_per_block,
 // `lanes_per_block` lanes of `warps_per_lane` warps each, the statics in
 // shared memory or read from device memory, and `smem_bytes` of dynamic
 // shared memory, which must be what that geometry takes; the grid is
-// stream_bf_blocks().
+// stream_bf_blocks(). `lane_ws` is null or the lanes' device-memory
+// workspace of `lane_ws_words` words, as in ffd_launch().
 int stream_bf_launch(const float* slot_req, const uint8_t* slot_valid,
                      const int32_t* slot_tol, const int32_t* slot_aff,
                      const uint8_t* cand_valid, const float* spot_free,
                      const int32_t* spot_count, const int32_t* spot_max_pods,
                      const int32_t* spot_taints, const uint8_t* spot_ok,
                      const int32_t* spot_aff, uint8_t* feasible,
-                     int32_t* chosen, int C, int K, int R, int W, int A, int S,
+                     int32_t* chosen, int32_t* lane_ws, int C, int K, int R,
+                     int W, int A, int S,
                      int used_code, int count_code, int aff_code,
                      int lanes_per_block, int warps_per_lane,
-                     int statics_in_smem, int smem_bytes, void* stream) {
+                     int statics_in_smem, int smem_bytes, int lane_ws_words,
+                     void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (R < 1 || W < 0 || A < 0 || S < 0 || K < 0 ||
       !valid_codes(used_code, count_code, aff_code) ||
       warp_choice(warps_per_lane) < 0 || lanes_per_block < 1)
     return (int)cudaErrorInvalidValue;
   int codes = used_code | count_code << 8 | aff_code << 16;
+  // one lane's words; the lanes take shared memory unless in lane_ws
+  const long long lw =
+      lane_words(K, R, W, A, S, warps_per_lane,
+                 DeltaOverlay::words(K, R, A, codes));
   const long long want =
       4 * ((statics_in_smem ? statics_words(S, R, W, A) : 0) +
-           (long long)lanes_per_block *
-               lane_words(K, R, W, A, S, warps_per_lane,
-                          DeltaOverlay::words(K, R, A, codes)));
+           (lane_ws != nullptr ? 0LL : lanes_per_block * lw));
   if (want != smem_bytes) return (int)cudaErrorInvalidValue;
+  const int in_ws = lane_ws != nullptr;
   const int blocks =
       stream_bf_blocks(C, R, W, A, lanes_per_block, warps_per_lane,
-                       statics_in_smem, smem_bytes);
+                       statics_in_smem, smem_bytes, in_ws);
   if (blocks < 0) return -blocks;
+  if (lane_ws != nullptr && blocks * lanes_per_block * lw > lane_ws_words)
+    return (int)cudaErrorInvalidValue;
   int spot_chunk = S > 0 ? S : 1;  // one chunk
   void* args[] = {&slot_req,    &slot_valid, &slot_tol,      &slot_aff,
                   &cand_valid,  &spot_free,  &spot_count,    &spot_max_pods,
                   &spot_taints, &spot_ok,    &spot_aff,      &feasible,
-                  &chosen,      &C,          &K,             &R,
-                  &W,           &A,          &S,             &spot_chunk,
-                  &lanes_per_block,          &codes};
+                  &chosen,      &lane_ws,    &C,             &K,
+                  &R,           &W,          &A,             &S,
+                  &spot_chunk,  &lanes_per_block,            &codes};
   const cudaError_t err = cudaLaunchKernel(
       reinterpret_cast<const void*>(
-          kKernels[fixed_shape(R, W, A)][statics_in_smem]
+          kKernels[fixed_shape(R, W, A, in_ws)][statics_in_smem]
                   [warp_choice(warps_per_lane)]),
       dim3(blocks), dim3(lanes_per_block * warps_per_lane * 32), args,
       (size_t)smem_bytes, static_cast<cudaStream_t>(stream));

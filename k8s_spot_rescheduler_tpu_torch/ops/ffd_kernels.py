@@ -25,7 +25,10 @@
   ``plan_stream_bf_pallas``), the carry-streamed union's best-fit pass.
 
 B1-B4 share their lane solve (``csrc/greedy.cuh``); ``launch_geometry``
-picks every kernel's launch shape.
+picks every kernel's launch shape. A lane's state lives in shared
+memory, or, where one lane alone passes a block's shared memory, in a
+device-memory workspace the wrapper allocates for the launch, so the
+kernels answer at every shape, as the JAX package does.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version (``solver/ffd``), and only
@@ -112,9 +115,11 @@ LAUNCH_ARGS = (
     *((name, dtype) for name, dtype, _ in _FIELDS),
     ("feasible", torch.bool),
     ("chosen", torch.int32),
+    ("lane_ws", torch.int32),
     *((dim, "int") for dim in (
         "C", "K", "R", "W", "A", "S", "spot_chunk", "best_fit",
         "lanes_per_block", "warps_per_lane", "statics_in_smem", "smem_bytes",
+        "lane_ws_words",
     )),
     ("stream", "stream"),
 )
@@ -124,9 +129,11 @@ STREAM_LAUNCH_ARGS = (
     *((name, dtype) for name, dtype, _ in _FIELDS),
     ("feasible", torch.bool),
     ("chosen", torch.int32),
+    ("lane_ws", torch.int32),
     *((dim, "int") for dim in (
         "C", "K", "R", "W", "A", "S", "used_code", "count_code", "aff_code",
         "lanes_per_block", "warps_per_lane", "statics_in_smem", "smem_bytes",
+        "lane_ws_words",
     )),
     ("stream", "stream"),
 )
@@ -155,8 +162,10 @@ class FfdGeometry(NamedTuple):
     of ``warps_per_lane`` warps share a block; the spot statics of one
     chunk (``statics_bytes``) sit in its shared memory or are read from
     device memory; each lane takes ``lane_bytes`` (slot rows, overlay,
-    touched bitmap); ``smem_bytes`` is the block's dynamic shared
-    memory."""
+    touched bitmap, partials), in shared memory after the statics or,
+    when ``lanes_in_smem`` is False, in a device-memory workspace of
+    grid x lanes a block lanes that the wrapper allocates;
+    ``smem_bytes`` is the block's dynamic shared memory."""
 
     lanes_per_block: int
     warps_per_lane: int
@@ -164,6 +173,7 @@ class FfdGeometry(NamedTuple):
     smem_bytes: int
     statics_bytes: int
     lane_bytes: int
+    lanes_in_smem: bool = True
 
     @property
     def threads(self) -> int:
@@ -205,21 +215,26 @@ def launch_geometry(
     when a lane has several warps) and no more than C, but no more than
     ceil(C/n_sm) either, so the lanes spread over every SM, unless that
     leaves fewer than ``STAGING_WARPS`` warps to stage the statics.
-    Raises ``ValueError`` when one lane's state alone exceeds
-    ``smem_limit``."""
+
+    When one lane's state alone exceeds ``smem_limit`` (K in the
+    thousands), the lanes live in a device-memory workspace
+    (``lanes_in_smem`` False): shared memory then holds the statics
+    where they fit, and only threads and the spread bound the lanes a
+    block."""
     P = 1
     if best_fit:
         P = next(p for p in WARPS_PER_LANE if p <= max(1, -(-S // 32)))
     one = fixed_geometry(K, S, R, W, A, 1, P, True, layout)
+    spread = min(C, max(-(-C // n_sm), STAGING_WARPS // P))
     if one.lane_bytes > smem_limit:
-        raise ValueError(
-            f"one lane of K={K} S={S} R={R} W={W} A={A} takes "
-            f"{one.lane_bytes} B of shared memory, past the {smem_limit} B "
-            f"a block may take"
-        )
+        L = min(32 // P, spread)
+        if P > 1:
+            L = min(L, MAX_NAMED_LANES)
+        return fixed_geometry(K, S, R, W, A, max(1, L), P,
+                              one.statics_bytes <= smem_limit, layout,
+                              lanes_in_smem=False)
     in_smem = one.smem_bytes <= smem_limit
     base = one.statics_bytes if in_smem else 0
-    spread = min(C, max(-(-C // n_sm), STAGING_WARPS // P))
     L = min((smem_limit - base) // one.lane_bytes, 32 // P, spread)
     if P > 1:
         L = min(L, MAX_NAMED_LANES)
@@ -228,17 +243,44 @@ def launch_geometry(
 
 def fixed_geometry(K: int, S: int, R: int, W: int, A: int, lanes: int,
                    warps: int, statics_in_smem: bool,
-                   layout=None) -> FfdGeometry:
+                   layout=None, *, lanes_in_smem: bool = True) -> FfdGeometry:
     """The geometry of ``lanes`` lanes of ``warps`` warps a block with the
-    statics in shared memory or not, for B1-B3 (``layout`` None) or B4,
+    statics in shared memory or not and the lanes in shared memory or
+    in the device-memory workspace, for B1-B3 (``layout`` None) or B4,
     its bytes counted as the kernel counts them (``ffd_launch`` and
     ``stream_bf_launch`` reject any other ``smem_bytes``)."""
     lane_bytes = 4 * (K * (R + W + A + 2) + overlay_words(K, R, A, layout)
                       + -(-S // 32) + 4 * warps)
     statics_bytes = 4 * S * (R + 1 + W + A)
     base = statics_bytes if statics_in_smem else 0
-    return FfdGeometry(lanes, warps, statics_in_smem,
-                       base + lanes * lane_bytes, statics_bytes, lane_bytes)
+    lanes_smem = lanes * lane_bytes if lanes_in_smem else 0
+    return FfdGeometry(lanes, warps, statics_in_smem, base + lanes_smem,
+                       statics_bytes, lane_bytes, lanes_in_smem)
+
+
+class KernelError(RuntimeError):
+    """A kernel of this module could not be built, loaded or launched."""
+
+
+def is_device_fault(err: BaseException) -> bool:
+    """True for a fault of the card's kernels: a ``KernelError``, any
+    error raised in this module (a wrapper refusing its inputs, the lane
+    workspace not allocated), or a CUDA error that surfaced at a later
+    synchronisation (a fault inside a kernel is reported there, not by
+    its launch)."""
+    accelerator_error = getattr(torch, "AcceleratorError", None)
+    if isinstance(err, KernelError) or (
+        accelerator_error is not None and isinstance(err, accelerator_error)
+    ):
+        return True
+    if isinstance(err, RuntimeError) and str(err).startswith("CUDA error"):
+        return True
+    tb = err.__traceback__
+    while tb is not None:
+        if tb.tb_frame.f_code.co_filename == __file__:
+            return True
+        tb = tb.tb_next
+    return False
 
 
 def reset_launch_counts() -> None:
@@ -255,7 +297,7 @@ def _nvcc() -> str:
             return path
     path = shutil.which("nvcc")
     if path is None:
-        raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
+        raise KernelError("nvcc not found: cannot build the CUDA kernels")
     return path
 
 
@@ -299,7 +341,7 @@ def build() -> dict:
     if running:
         BUILD_LOG = "\n".join(logs)
     if failed:
-        raise RuntimeError("\n".join(failed) + "\n" + BUILD_LOG)
+        raise KernelError("\n".join(failed) + "\n" + BUILD_LOG)
     return paths
 
 
@@ -315,7 +357,7 @@ def _bind(name: str, lib) -> None:
     smem.argtypes = [i32]
     smem.restype = i32
     blocks = getattr(lib, f"{name}_blocks")
-    blocks.argtypes = [i32] * (9 if name == "ffd" else 8)
+    blocks.argtypes = [i32] * (10 if name == "ffd" else 9)
     blocks.restype = i32
     error = getattr(lib, f"{name}_error_string")
     error.argtypes = [i32]
@@ -328,7 +370,10 @@ def library(name: str = "ffd"):
     if name not in _libs:
         for lib_name, path in build().items():
             if lib_name not in _libs:
-                lib = ctypes.CDLL(path)
+                try:
+                    lib = ctypes.CDLL(path)
+                except OSError as err:
+                    raise KernelError(f"cannot load {path}: {err}") from err
                 _bind(lib_name, lib)
                 _libs[lib_name] = lib
     return _libs[name]
@@ -360,7 +405,7 @@ def _smem_limit(name: str, device_index: int) -> int:
             device_index
         )
         if limit < 0:
-            raise RuntimeError("cannot read the card's shared-memory limit")
+            raise KernelError("cannot read the card's shared-memory limit")
         _SMEM_LIMIT[(name, device_index)] = limit
     return limit
 
@@ -394,15 +439,22 @@ def grid_blocks(packed, geometry: FfdGeometry, best_fit: bool,
     ``packed``'s card (``ffd_blocks``, or ``stream_bf_blocks`` for B4:
     CUDA's occupancy)."""
     C, _, _, R, W, A = shapes(packed)
-    shape = (geometry.lanes_per_block, geometry.warps_per_lane,
-             int(geometry.statics_in_smem), geometry.smem_bytes)
     name = "ffd" if layout is None else "stream_bf"
-    lib = library(name)
     with torch.cuda.device(_device_index(packed.slot_req.device)):
-        if layout is None:
-            blocks = lib.ffd_blocks(C, R, W, A, int(best_fit), *shape)
-        else:
-            blocks = lib.stream_bf_blocks(C, R, W, A, *shape)
+        return _blocks(name, C, R, W, A, best_fit, geometry)
+
+
+def _blocks(name: str, C: int, R: int, W: int, A: int, best_fit: bool,
+            geometry: FfdGeometry) -> int:
+    """``grid_blocks`` on the current device."""
+    lib = library(name)
+    shape = (geometry.lanes_per_block, geometry.warps_per_lane,
+             int(geometry.statics_in_smem), geometry.smem_bytes,
+             int(not geometry.lanes_in_smem))
+    if name == "ffd":
+        blocks = lib.ffd_blocks(C, R, W, A, int(best_fit), *shape)
+    else:
+        blocks = lib.stream_bf_blocks(C, R, W, A, *shape)
     if blocks < 0:
         _raise_on(lib, name, -blocks)
     return blocks
@@ -426,7 +478,7 @@ def _device_index(dev) -> int:
 def _raise_on(lib, name: str, err: int) -> None:
     if err != 0:
         message = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {message}")
+        raise KernelError(f"{name} kernel launch failed: {message}")
 
 
 def _launch(name: str, packed, geometry: FfdGeometry, **dims):
@@ -441,10 +493,23 @@ def _launch(name: str, packed, geometry: FfdGeometry, **dims):
     chosen = torch.empty((C, K), dtype=torch.int32, device=dev)
     spec = LAUNCH_ARGS if name == "ffd" else STREAM_LAUNCH_ARGS
     with torch.cuda.device(index):
+        ws_ptr, ws_words = 0, 0  # lanes in shared memory: no workspace
+        if not geometry.lanes_in_smem:
+            # one lane slot for each lane of each block of the grid
+            blocks = _blocks(name, C, R, W, A, dims.get("best_fit", 1),
+                             geometry)
+            lanes = blocks * geometry.lanes_per_block
+            ws_words = lanes * geometry.lane_bytes // 4
+            if ws_words >= 2**31:
+                raise ValueError(f"a lane workspace of {ws_words} words")
+            ws = torch.empty((ws_words,), dtype=torch.int32, device=dev)
+            ws_ptr = ws.data_ptr()
         args = {n: getattr(packed, n).data_ptr() for n, _, _ in _FIELDS}
         args.update(
             feasible=feasible.data_ptr(),
             chosen=chosen.data_ptr(),
+            lane_ws=ws_ptr,
+            lane_ws_words=ws_words,
             C=C, K=K, R=R, W=W, A=A, S=S,
             lanes_per_block=geometry.lanes_per_block,
             warps_per_lane=geometry.warps_per_lane,
@@ -580,7 +645,8 @@ def plan_stream_bf_kernel(
     ``layout`` (the contract of ``plan_ffd_streamed(best_fit=True)``
     and of the JAX package's ``plan_stream_bf_pallas``). Each lane's
     overlay holds the carry of the spots it touched, in shared memory
-    even where the statics pass it. ``carry_chunks`` does not change the result: the chunked election
+    even where the statics pass it (in the lane workspace past one
+    lane's shared memory). ``carry_chunks`` does not change the result: the chunked election
     is the global one; it sizes only the plain version, which CPU
     tensors take."""
     if not packed.slot_req.is_cuda:

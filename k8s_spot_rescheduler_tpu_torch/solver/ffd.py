@@ -186,7 +186,9 @@ def ffd_raw(
     static = _spot_statics(packed)
     carry = _zero_carry(layout, C, R, A, S, packed.cand_valid)
     chosen = torch.full((C, K), -1, dtype=torch.int32, device=carry.used.device)
-    for k in range(K):
+    # a slot no lane holds changes nothing: stop after the last one held
+    held = packed.slot_valid.any(dim=0).nonzero()
+    for k in range(int(held[-1]) + 1 if len(held) else 0):
         carry, chosen[:, k] = _scan_step(
             static, best_fit, carry, _slot(packed, k)
         )

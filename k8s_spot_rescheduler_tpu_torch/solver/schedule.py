@@ -139,3 +139,56 @@ def commit_step_host(packed, idx: int, row: np.ndarray):
     return packed._replace(
         spot_free=free, spot_count=count, spot_aff=aff, cand_valid=cand
     )
+
+
+def slice_lane(packed, c: int):
+    """A single-lane view (C=1) of ``packed``, numpy or torch — lanes
+    are independent fork copies, so slicing is exact. The schedule
+    execution handle's per-step validation (planner/schedule.py) uses
+    it."""
+    sl = slice(c, c + 1)
+    return packed._replace(
+        slot_req=packed.slot_req[sl],
+        slot_valid=packed.slot_valid[sl],
+        slot_tol=packed.slot_tol[sl],
+        slot_aff=packed.slot_aff[sl],
+        cand_valid=packed.cand_valid[sl],
+    )
+
+
+def plan_schedule_oracle(
+    packed,
+    horizon: int,
+    *,
+    best_fit_fallback: bool = True,
+    repair_rounds: int = 8,
+) -> np.ndarray:
+    """Host-side drain-to-exhaustion schedule on a numpy PackedCluster:
+    the same loop over the host union (solver/numpy_oracle.
+    plan_union_oracle), emitting the identical int32 [horizon, 3+K]
+    matrix."""
+    from k8s_spot_rescheduler_tpu_torch.solver.numpy_oracle import (
+        plan_union_oracle,
+    )
+
+    C, K, _ = packed.slot_req.shape
+    out = np.full((horizon, 3 + K), -1, np.int32)
+    cur = packed
+    for step in range(horizon):
+        res = plan_union_oracle(
+            cur,
+            best_fit_fallback=best_fit_fallback,
+            repair_rounds=repair_rounds,
+        )
+        feasible = np.asarray(res.feasible) & np.asarray(cur.cand_valid)
+        out[step, 1] = 0
+        out[step, 2] = int(feasible.sum())
+        if not feasible.any():
+            break
+        idx = int(np.argmax(feasible))
+        row = np.asarray(res.assignment[idx], np.int32)
+        out[step, 0] = idx
+        out[step, 1] = 1
+        out[step, 3:] = row
+        cur = commit_step_host(cur, idx, row)
+    return out

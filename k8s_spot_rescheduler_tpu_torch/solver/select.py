@@ -17,6 +17,7 @@ solved prefix's count when early exit fired (``count_truncated``).
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import numpy as np
@@ -93,7 +94,10 @@ def _lane_slice(packed, start: int, size: int):
 
 
 class StagedPlanner:
-    """Chunked, early-exiting selection over the candidate axis."""
+    """Chunked, early-exiting selection over the candidate axis,
+    pipelined as the reference's: ``start`` fetches the prefilter
+    verdict and dispatches the first runnable chunk, ``finish_run``
+    dispatches chunk i+1 before it fetches chunk i."""
 
     def __init__(self, solve_fn, *, chunk_lanes: int = 256,
                  early_exit: bool = True):
@@ -106,25 +110,69 @@ class StagedPlanner:
         self.early_exit = early_exit
         self._prefilter = lane_maybe_feasible
 
-    def solve(self, packed):
-        """(Selection, StagedStats). Host syncs: the prefilter verdict,
-        then one selection fetch per solved chunk (plus the union's own
-        gates)."""
-        C, K = packed.slot_req.shape[:2]
-        maybe = self._prefilter(packed).cpu().numpy()  # C bools
+    def dispatch_prefilter(self, packed) -> torch.Tensor:
+        """Dispatch the per-lane bound; hand the result to
+        ``start``/``solve`` so host work overlaps the device prefilter."""
+        return self._prefilter(packed)
+
+    def start(self, packed, maybe=None) -> dict:
+        """Fetch the (tiny) prefilter verdict, decide the runnable chunk
+        list and dispatch the first chunk: the device is already solving
+        while the caller does host work before ``finish_run``."""
+        C = packed.slot_req.shape[0]
+        if maybe is None:
+            maybe = self.dispatch_prefilter(packed)
+        if isinstance(maybe, torch.Tensor):
+            maybe = maybe.cpu().numpy()  # C bools: a host sync
+        maybe = np.asarray(maybe)
         chunk = self.chunk_lanes
         starts = list(range(0, C, chunk))
-        runnable = [s for s in starts if maybe[s : s + chunk].any()]
-        solved = 0
+        run = {
+            "packed": packed,
+            "C": C,
+            "K": packed.slot_req.shape[1],
+            "runnable": [s for s in starts if maybe[s : s + chunk].any()],
+            "n_chunks": len(starts),
+            "eliminated": int((~maybe).sum()),
+            "pending": collections.deque(),  # dispatched, not yet fetched
+            "next": 0,
+        }
+        self._dispatch_next(run)
+        return run
+
+    def _dispatch_next(self, run) -> None:
+        i = run["next"]
+        if i < len(run["runnable"]):
+            start = run["runnable"][i]
+            size = min(self.chunk_lanes, run["C"] - start)
+            run["pending"].append(
+                (
+                    start,
+                    selection_vector(
+                        self.solve_fn, _lane_slice(run["packed"], start, size)
+                    ),
+                )
+            )
+            run["next"] = i + 1
+
+    def finish_run(self, run):
+        """Drain the chunk pipeline; returns (Selection, StagedStats).
+
+        Chunks are fetched in selection order with pipeline depth 2:
+        chunk i+1 is dispatched before the fetch of chunk i blocks, so
+        the fetch's round trip hides behind the next chunk's work. Early
+        exit costs at most the one chunk dispatched ahead. Host syncs:
+        one selection fetch per fetched chunk (plus the union's own
+        gates)."""
+        fetched = 0
         n_feasible = 0
         found_idx = -1
-        row = np.full(K, -1, np.int32)
-        for start in runnable:
-            size = min(chunk, C - start)
-            vec = selection_vector(
-                self.solve_fn, _lane_slice(packed, start, size)
-            ).cpu().numpy()
-            solved += 1
+        row = np.full(run["K"], -1, np.int32)
+        while run["pending"]:
+            self._dispatch_next(run)
+            start, pending_vec = run["pending"].popleft()
+            vec = pending_vec.cpu().numpy()
+            fetched += 1
             n_feasible += int(vec[2])
             if found_idx < 0 and vec[1]:
                 found_idx = start + int(vec[0])
@@ -138,9 +186,14 @@ class StagedPlanner:
             row=row,
         )
         stats = StagedStats(
-            chunks_solved=solved,
-            chunks_skipped=len(starts) - solved,
-            lanes_eliminated=int((~maybe).sum()),
-            count_truncated=found_idx >= 0 and solved < len(runnable),
+            chunks_solved=fetched,
+            chunks_skipped=run["n_chunks"] - fetched,
+            lanes_eliminated=run["eliminated"],
+            count_truncated=found_idx >= 0 and fetched < len(run["runnable"]),
         )
         return sel, stats
+
+    def solve(self, packed, maybe=None):
+        """Run the staged solve start to finish; returns
+        (Selection, StagedStats)."""
+        return self.finish_run(self.start(packed, maybe))

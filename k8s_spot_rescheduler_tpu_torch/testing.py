@@ -32,9 +32,26 @@ each one's layout):
 - ``aff_bit7`` / ``aff_bit15`` / ``aff_bit31``: affinity bits up to
   bit 7 / 15 / 31, the top bit of a uint8 / uint16 / uint32 ``daff``
   (bit 31 is a negative int32 word on the card).
+
+``CONTROLLER_RUNS``, ``controller_config``, ``cluster_digest`` and
+``run_ticks`` drive a controller over a synthetic cluster tick by tick
+and record what each tick did. They are duck-typed over the package, so
+``tests/torch_port_fixtures.py`` runs the JAX package's controller
+through them to freeze its drains (``data/ticks_seed0.json``) and
+``chip_smoke.py`` holds the port's against those.
+
+``past_smem_pack`` is a contended-like pack (S=1,152 spots, R=2, W=17
+taint words, A=2) with K=2,200 slots a lane: one lane's state passes an
+H100 block's shared memory for B1-B4 alike, so the kernels carve their
+lanes from the device-memory workspace.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
 
 import numpy as np
 
@@ -232,3 +249,96 @@ def overlay_stress_packs(seed: int = 0) -> dict:
         "aff_bit15": _aff_bits(rng, 15),
         "aff_bit31": _aff_bits(rng, 31),
     }
+
+
+PAST_SMEM_SHAPE = (48, 2200, 1152, 2, 17, 2)  # C, K, S, R, W, A
+
+
+def past_smem_pack(seed: int = 0) -> PackedCluster:
+    """The contended-like pack of ``PAST_SMEM_SHAPE`` (module doc): half
+    the slots valid, spot taints and affinity bits sparse, so most slots
+    pass the 17 taint words and each lane places a thousand pods before
+    it fails or proves (first-fit proves most lanes, best-fit few)."""
+    C, K, S, R, W, A = PAST_SMEM_SHAPE
+    rng = np.random.default_rng(seed)
+    base = random_pack(rng, C, K, S, R, W, A, max_pods=16)
+    return base._replace(
+        slot_valid=rng.random((C, K)) < 0.5,
+        slot_aff=random_bits(rng, (C, K, A), p=0.01),
+        spot_taints=random_bits(rng, (S, W), p=0.02, top=8),
+    )
+
+
+# --- controller runs ------------------------------------------------------------
+
+# (name, synthetic config, ticks, schedule_horizon): the controller runs
+# frozen from the JAX package and checked on the card, each from a fresh
+# ``generate_cluster(CONFIGS[config], seed, reschedule_evicted=True)``
+CONTROLLER_RUNS = (
+    ("config3", 3, 5, 32),
+    ("config3-horizon0", 3, 3, 0),
+    ("config4", 4, 3, 32),
+)
+# the CLI run: ``--cluster synthetic:1`` with these flags
+CLI_ARGS = ("--cluster", "synthetic:1", "--ticks", "3", "--no-metrics-server",
+            "--node-drain-delay", "1s")
+TICKS_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "data", "ticks_seed0.json"
+)
+
+
+def controller_config(config_cls, spec, horizon: int):
+    """The controller runs' configuration, of either package's
+    ``ReschedulerConfig`` class: the spec's resources, a 1 s drain delay
+    (a drain each 10 s tick), the object observe path and ``horizon``
+    (0 = schedules off). Only the JAX package's class has
+    ``use_columnar``: the port always observes through objects."""
+    kw = {}
+    if "use_columnar" in {f.name for f in dataclasses.fields(config_cls)}:
+        kw["use_columnar"] = False
+    return config_cls(
+        node_drain_delay=1.0,
+        resources=tuple(spec.resources),
+        schedule_horizon=horizon,
+        **kw,
+    )
+
+
+def cluster_digest(client) -> str:
+    """sha256 of a fake cluster's nodes and pods in their order: node
+    names, pod UIDs, each pod's node and requests."""
+    h = hashlib.sha256()
+    for node in client.nodes.values():
+        h.update(f"N {node.name}\n".encode())
+    for pod in client.pods.values():
+        req = sorted((k, int(v)) for k, v in pod.requests.items())
+        h.update(f"P {pod.uid} {pod.node_name} {req}\n".encode())
+    return h.hexdigest()
+
+
+def run_ticks(rescheduler, client, ticks: int) -> list:
+    """Drive ``ticks`` housekeeping ticks as the CLI does (sleep the
+    effective interval on the cluster's virtual clock, then tick); one
+    record a tick: the nodes drained, the pod UIDs evicted (sorted: the
+    drain evicts a node's pods from a thread pool, in no fixed order),
+    the skip reason ("" when the tick ran) and whether the fallback
+    planner ran."""
+    out = []
+    for _ in range(ticks):
+        client.clock.sleep(rescheduler.effective_interval())
+        seen = len(client.evictions)
+        res = rescheduler.tick()
+        out.append({
+            "drained": list(res.drained),
+            "evicted": sorted(client.evictions[seen:]),
+            "skipped": res.skipped,
+            "planner_fallback": bool(res.planner_fallback),
+        })
+    return out
+
+
+def load_ticks(path: str | None = None) -> dict:
+    """The frozen controller runs (``tests/torch_port_fixtures.py
+    ticks``), from ``TICKS_PATH`` by default."""
+    with open(path or TICKS_PATH) as f:
+        return json.load(f)

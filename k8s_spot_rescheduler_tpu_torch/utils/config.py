@@ -1,0 +1,158 @@
+"""Framework configuration.
+
+The port of the JAX package's ``utils/config.py``: the reference's flag
+surface (reference rescheduler.go:48-108) and the cross-package mutable
+globals it writes into (reference nodes/nodes.go:31-42:
+``OnDemandNodeLabel``/``SpotNodeLabel``/``PriorityThreshold``) as one
+explicit, immutable dataclass that is passed down the stack. It is the
+one source of the planner's defaults too
+(``planner/solver_planner.TorchSolverPlanner`` takes it).
+
+Knobs of modules not yet ported are left out, with their modules: the
+mesh and memory ladder (``mesh_shape``, ``auto_shard``,
+``solver_hbm_budget``, ``carry_chunks``), the planner service and its
+agent (``planner_url(s)``, ``planner_timeout``, ``delta_wire_enabled``,
+``service_*``, ``device_sick_threshold``), the kube client and its watch
+(``kube_retry_*``, ``watch_progress_deadline``), chaos injection
+(``chaos_*``), the sidecar's ``debug_endpoints`` and the JAX-only
+``jax_cache_dir``. So are the knobs that no source of the port reads
+yet: the kube credentials (``running_in_cluster``, ``kubeconfig``: only
+synthetic clusters are ported), ``use_columnar`` (no client offers a
+columnar mirror) and the watch mirror's ``mirror_staleness_budget`` and
+``resync_interval`` (the controller holds the reference's defaults as
+constants).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+SOLVERS = ("torch", "numpy")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReschedulerConfig:
+    """All knobs of the rescheduler, with the reference's defaults.
+
+    Field-by-field parity with the reference flags:
+
+    - ``namespace``               — rescheduler.go:57-58
+    - ``housekeeping_interval``   — rescheduler.go:63-64 (10 s)
+    - ``node_drain_delay``        — rescheduler.go:66-67 (10 min)
+    - ``pod_eviction_timeout``    — rescheduler.go:69-71 (2 min)
+    - ``max_graceful_termination``— rescheduler.go:73-75 (2 min)
+    - ``listen_address``          — rescheduler.go:77-78
+    - ``delete_non_replicated_pods`` — rescheduler.go:84
+    - ``on_demand_node_label``    — rescheduler.go:98-101
+    - ``spot_node_label``         — rescheduler.go:102-105
+    - ``priority_threshold``      — rescheduler.go:107-108
+    - ``eviction_retry_time``     — scaler/scaler.go:37-38 (10 s; a const
+      in the reference, a knob here)
+
+    Additions (no reference equivalent):
+
+    - ``resources``     — which resource dimensions the solver packs into the
+      request/allocatable tensors.
+    - ``max_pods_per_node_hint`` — static padding bound for the solver's pod
+      axis; the packer grows it if a node exceeds the hint.
+    - ``solver``        — "torch" (the union with kernels B1/B2 on the
+      planner's device, the default) or "numpy" (the serial host oracle).
+    - ``max_drains_per_tick`` — the reference hard-codes one drain per tick
+      (rescheduler.go:286 ``break``); keep 1 for faithful behavior.
+    - ``fallback_best_fit`` — candidates unprovable under the reference's
+      first-fit probe get a second feasibility pass under best-fit-
+      decreasing packing (only ever adds drainable nodes).
+    - ``repair_rounds`` — bounded eject-and-reinsert local-search rounds
+      (solver/repair.py) for lanes both greedy passes fail; repaired
+      placements are re-proven from scratch before use. 0 disables.
+    """
+
+    namespace: str = "kube-system"
+    housekeeping_interval: float = 10.0
+    node_drain_delay: float = 600.0
+    pod_eviction_timeout: float = 120.0
+    max_graceful_termination: float = 120.0
+    listen_address: str = "localhost:9235"
+    delete_non_replicated_pods: bool = False
+    on_demand_node_label: str = "kubernetes.io/role=worker"
+    spot_node_label: str = "kubernetes.io/role=spot-worker"
+    priority_threshold: int = 0
+    eviction_retry_time: float = 10.0
+
+    # planner knobs
+    resources: Sequence[str] = ("cpu", "memory")
+    max_pods_per_node_hint: int = 64
+    solver: str = "torch"
+    max_drains_per_tick: int = 1
+    fallback_best_fit: bool = True
+    repair_rounds: int = 8
+    # Incremental device-resident tick pipeline:
+    # - ``incremental_device_cache`` keeps the previous tick's packed
+    #   problem resident on the device and writes only the churn delta
+    #   (models/delta.emit_packed_delta) each tick. Off → full upload
+    #   every tick.
+    # - ``staged_chunk_lanes`` solves candidate lanes in selection-order
+    #   chunks of this size, skipping chunks the device prefilter
+    #   (solver/prefilter.py) proves infeasible; 0 → unstaged full solve.
+    # - ``staged_early_exit`` stops at the first chunk containing a
+    #   feasible lane (the loop drains only the first feasible candidate,
+    #   so the selection is identical); the reported feasible COUNT then
+    #   covers the solved prefix only on ticks that found a drain.
+    incremental_device_cache: bool = True
+    staged_chunk_lanes: int = 256
+    staged_early_exit: bool = True
+    # Drain-to-exhaustion schedules (solver/schedule.py,
+    # planner/schedule.py): one device fetch returns a whole drain
+    # SCHEDULE (up to ``schedule_horizon`` steps) that the controller
+    # executes across ticks, each step re-packed, precondition-checked,
+    # and re-proven from scratch against the live cluster before any
+    # eviction. ``schedule_horizon`` 0 is the documented opt-out
+    # (per-tick single plans).
+    plan_schedule_enabled: bool = True
+    schedule_horizon: int = 32
+    # --- chaos hardening ---
+    # Observe-error circuit breaker (loop/controller.py): after this many
+    # consecutive error-skipped ticks the effective housekeeping interval
+    # doubles per further failure, capped at breaker_max_interval;
+    # 0 disables the breaker.
+    breaker_threshold: int = 3
+    breaker_max_interval: float = 300.0
+    # Crash-safe drain recovery: on startup and once per tick, remove
+    # ToBeDeleted taints no active drain owns.
+    reconcile_orphaned_taints: bool = True
+    # --- tick tracing + flight recorder ---
+    # Per-tick span-tree tracing (utils/tracing.py); off = the phase
+    # histograms alone.
+    trace_enabled: bool = True
+    # Flight recorder (loop/flight.py): how many completed tick traces
+    # the in-memory postmortem ring retains.
+    flight_ring_size: int = 64
+    # Directory the flight recorder auto-dumps a redacted JSON
+    # postmortem into whenever a degradation edge fires; empty = never
+    # write to disk.
+    flight_dump_dir: str = ""
+
+    def __post_init__(self):
+        from k8s_spot_rescheduler_tpu_torch.utils.labels import validate_label
+
+        validate_label(self.on_demand_node_label, "on demand node label")
+        validate_label(self.spot_node_label, "spot node label")
+        if self.solver not in SOLVERS:
+            raise ValueError(
+                f"unknown solver {self.solver!r} (known: {', '.join(SOLVERS)})"
+            )
+        if self.max_drains_per_tick < 1:
+            raise ValueError("max_drains_per_tick must be >= 1")
+        if self.staged_chunk_lanes < 0:
+            raise ValueError("staged_chunk_lanes must be >= 0 (0 = unstaged)")
+        if self.schedule_horizon < 0:
+            raise ValueError(
+                "schedule_horizon must be >= 0 (0 = schedules off)"
+            )
+        if not self.resources:
+            raise ValueError("resources must be non-empty")
+        if self.breaker_threshold < 0:
+            raise ValueError("breaker_threshold must be >= 0 (0 = off)")
+        if self.flight_ring_size < 1:
+            raise ValueError("flight_ring_size must be >= 1")

@@ -32,7 +32,9 @@ from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
     plan_ffd_streamed,
 )
 from k8s_spot_rescheduler_tpu_torch.testing import (
+    PAST_SMEM_SHAPE,
     STRESS_LAYOUTS,
+    past_smem_pack,
     overlay_stress_packs,
     random_bits,
     random_pack,
@@ -225,14 +227,11 @@ GEOMETRY_SHAPES = {
 def test_launch_geometry(case, best_fit):
     """The launch shape at an H100's limits: threads and shared memory
     within the card's, one warp per lane for first-fit, the statics
-    staged where they fit and read from device memory past that, and a
-    ValueError where one lane's state alone is too large."""
+    staged where they fit and read from device memory past that, and the
+    lanes in the device-memory workspace where one lane's state alone is
+    too large for shared memory (``impossible_k``)."""
     C, K, S, R, W, A = GEOMETRY_SHAPES[case]
     limit = ffd_kernels.H100_SMEM_LIMIT
-    if case == "impossible_k":
-        with pytest.raises(ValueError, match="past the"):
-            ffd_kernels.launch_geometry(C, K, S, R, W, A, limit, best_fit)
-        return
     g = ffd_kernels.launch_geometry(C, K, S, R, W, A, limit, best_fit)
     L, P = g.lanes_per_block, g.warps_per_lane
     assert 1 <= L and g.threads == 32 * L * P <= 1024
@@ -240,7 +239,9 @@ def test_launch_geometry(case, best_fit):
     assert g.lane_bytes == 4 * (K * (2 * R + W + 2 * A + 3) + -(-S // 32) + 4 * P)
     assert g.statics_bytes == 4 * S * (R + 1 + W + A)
     staged = g.statics_bytes if g.statics_in_smem else 0
-    assert g.smem_bytes == staged + L * g.lane_bytes
+    assert g.lanes_in_smem == (case != "impossible_k")
+    assert g.lanes_in_smem == (g.lane_bytes <= limit)
+    assert g.smem_bytes == staged + (L * g.lane_bytes if g.lanes_in_smem else 0)
     # lanes spread over the SMs, unless a block would stage the statics
     # with fewer warps than STAGING_WARPS
     assert L <= min(C, max(-(-C // ffd_kernels.H100_SMS),
@@ -501,6 +502,89 @@ def test_lane_state_past_shared_memory_on_the_card(cuda_device, best_fit):
     got = ffd_kernels.plan_ffd_kernel(packed, best_fit=best_fit)
     torch.cuda.synchronize()
     _assert_same(got, plan_ffd(packed, best_fit=best_fit))
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4"])
+def test_past_smem_pack_passes_shared_memory(kernel):
+    """One lane of ``past_smem_pack`` passes a block's shared memory for
+    each kernel (B3 at 2 chunks, B4 at the pack's own carry layout), so
+    every launch carves its lanes from the workspace."""
+    C, K, S, R, W, A = PAST_SMEM_SHAPE
+    packed = past_smem_pack(0)
+    assert packed.slot_req.shape == (C, K, R)
+    assert packed.spot_taints.shape == (S, W)
+    layout = carry_layout(packed) if kernel == "B4" else None
+    g = ffd_kernels.launch_geometry(
+        C, K, -(-S // 2) if kernel == "B3" else S, R, W, A,
+        ffd_kernels.H100_SMEM_LIMIT, kernel in ("B2", "B4"), layout=layout,
+    )
+    assert not g.lanes_in_smem and g.lane_bytes > ffd_kernels.H100_SMEM_LIMIT
+    assert g.statics_in_smem and g.smem_bytes == g.statics_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4"])
+def test_lane_workspace_matches_plain_on_the_card(cuda_device, kernel):
+    """Past one lane's shared memory (``past_smem_pack``, K=2,200 at
+    W=17) each kernel runs with its lanes in the device-memory workspace,
+    bit-identical to its plain version."""
+    host = past_smem_pack(0)
+    packed = to_device(host, cuda_device)
+    before = ffd_kernels.LAUNCHES[kernel]
+    if kernel in ("B1", "B2"):
+        best_fit = kernel == "B2"
+        assert not ffd_kernels.card_geometry(packed, best_fit).lanes_in_smem
+        got = ffd_kernels.plan_ffd_kernel(packed, best_fit=best_fit)
+        want = plan_ffd(packed, best_fit=best_fit)
+    elif kernel == "B3":
+        chunk = -(-packed.spot_free.shape[0] // 2)
+        got = ffd_kernels.plan_ffd_chunked(packed, chunk)
+        want = ffd_kernels.plan_ffd_chunked_plain(packed, chunk)
+    else:
+        layout = carry_layout(host)
+        got = ffd_kernels.plan_stream_bf_kernel(packed, carry_chunks=2,
+                                                layout=layout)
+        want = plan_ffd_streamed(packed, carry_chunks=2, layout=layout,
+                                 best_fit=True)
+    assert ffd_kernels.LAUNCHES[kernel] == before + 1
+    torch.cuda.synchronize()
+    _assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "best_fit, warps",
+    [(False, 1), (True, 1), (True, 2), (True, 4), (True, 8)],
+    ids=["B1", "B2-P1", "B2-P2", "B2-P4", "B2-P8"],
+)
+def test_lane_workspace_in_every_geometry(cuda_device, best_fit, warps):
+    """B1/B2 and B4 with their lanes forced into the workspace, across
+    lanes per block and the statics' place: the same raw answer as with
+    the lanes in shared memory."""
+    packed = to_device(STRESS["k130"], cuda_device)
+    layout = carry_layout(STRESS["k130"])
+    C, K, S, R, W, A = 24, 130, 200, 4, 1, 2
+    want = ffd_raw(packed, best_fit)
+    valid = packed.cand_valid
+    for L in (1, 3):
+        for in_smem in (True, False):
+            g = ffd_kernels.fixed_geometry(K, S, R, W, A, L, warps, in_smem,
+                                           lanes_in_smem=False)
+            assert g.smem_bytes == (g.statics_bytes if in_smem else 0)
+            feasible, chosen = ffd_kernels.launch_raw(packed, best_fit, g)
+            torch.cuda.synchronize()
+            assert torch.equal(feasible, want[0])
+            assert torch.equal(chosen[valid], want[1][valid])
+            if not best_fit:
+                continue
+            g4 = ffd_kernels.fixed_geometry(K, S, R, W, A, L, warps, in_smem,
+                                            layout, lanes_in_smem=False)
+            feasible, chosen = ffd_kernels.launch_stream_raw(packed, layout,
+                                                             g4)
+            torch.cuda.synchronize()
+            assert torch.equal(feasible, want[0])
+            assert torch.equal(torch.where(feasible[:, None], chosen, -1),
+                               plan_ffd(packed, best_fit=True).assignment)
 
 
 @pytest.mark.cuda

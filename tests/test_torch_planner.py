@@ -22,10 +22,10 @@ from k8s_spot_rescheduler_tpu_torch.models.tensors import (
     to_device,
 )
 from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
-    PlannerConfig,
     TorchSolverPlanner,
 )
 from k8s_spot_rescheduler_tpu_torch.solver.schedule import commit_step_host
+from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
 from tests.test_solver import _random_packed
 
 torch.set_num_threads(1)
@@ -146,13 +146,99 @@ def test_shape_growth_reuploads_in_full():
     assert planner._device_packed.spot_free.shape[0] == S + 1
 
 
+def _assert_resident_is(planner, packed):
+    fresh = to_device(packed, "cpu")
+    for f in PackedCluster._fields:
+        assert torch.equal(getattr(planner._device_packed, f),
+                           getattr(fresh, f)), f
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_failed_delta_apply_uploads_in_full(seed, monkeypatch):
+    """A copy that raises part way through a delta (after the lane
+    fields, at ``spot_free``) leaves the resident tensors half written:
+    that tick uploads in full, equal to a fresh upload, and the next
+    tick diffs against it correctly."""
+    rng = np.random.default_rng(900 + seed)
+    tick1 = _random_packed(rng)
+    tick2 = _churn(tick1, rng)
+    tick3 = _churn(tick2, rng)
+    planner = TorchSolverPlanner(device="cpu")
+    planner.plan_packed(tick1)
+    target = planner._device_packed.spot_free.data_ptr()
+    copy = torch.Tensor.index_copy_
+    failed = []
+
+    def failing_copy(self, dim, index, source):
+        if self.data_ptr() == target:
+            failed.append(True)
+            raise RuntimeError("injected copy failure")
+        return copy(self, dim, index, source)
+
+    monkeypatch.setattr(torch.Tensor, "index_copy_", failing_copy)
+    sel2 = planner.plan_packed(tick2)
+    monkeypatch.undo()
+    assert failed and planner.last_upload[:2] == (-1, True)
+    _assert_resident_is(planner, tick2)
+    np.testing.assert_array_equal(
+        _selection(sel2),
+        _selection(TorchSolverPlanner(device="cpu").plan_packed(tick2)),
+    )
+    sel3 = planner.plan_packed(tick3)
+    lanes, full, _ = planner.last_upload
+    assert not full and lanes >= 0
+    _assert_resident_is(planner, tick3)
+    np.testing.assert_array_equal(
+        _selection(sel3),
+        _selection(TorchSolverPlanner(device="cpu").plan_packed(tick3)),
+    )
+
+
+def test_failed_delta_then_failed_upload_leaves_no_stale_cache(monkeypatch):
+    """When the full upload after a failed delta fails too, the tick
+    raises; the cache it leaves is empty, not half written, so the next
+    tick uploads in full and holds exactly its own pack."""
+    from k8s_spot_rescheduler_tpu_torch.planner import solver_planner
+
+    rng = np.random.default_rng(950)
+    tick1 = _random_packed(rng)
+    tick2 = _churn(tick1, rng)
+    tick3 = _churn(tick2, rng)
+    planner = TorchSolverPlanner(device="cpu")
+    planner.plan_packed(tick1)
+    target = planner._device_packed.spot_free.data_ptr()
+    copy = torch.Tensor.index_copy_
+
+    def failing_copy(self, dim, index, source):
+        if self.data_ptr() == target:
+            raise RuntimeError("injected copy failure")
+        return copy(self, dim, index, source)
+
+    def failing_upload(packed, device=None):
+        raise RuntimeError("injected upload failure")
+
+    monkeypatch.setattr(torch.Tensor, "index_copy_", failing_copy)
+    monkeypatch.setattr(solver_planner, "to_device", failing_upload)
+    with pytest.raises(RuntimeError, match="upload failure"):
+        planner.plan_packed(tick2)
+    monkeypatch.undo()
+    assert planner._device_packed is None and planner._host_prev is None
+    sel3 = planner.plan_packed(tick3)
+    assert planner.last_upload[:2] == (-1, True)
+    _assert_resident_is(planner, tick3)
+    np.testing.assert_array_equal(
+        _selection(sel3),
+        _selection(TorchSolverPlanner(device="cpu").plan_packed(tick3)),
+    )
+
+
 # --- the tick against the host oracles ----------------------------------------
 
 
 @pytest.mark.parametrize("staged_chunk_lanes", [0, 3])
 def test_plan_packed_matches_the_oracle_union(staged_chunk_lanes):
     packed = pack_quality(QUALITY_SPEC, 2)
-    cfg = PlannerConfig(
+    cfg = ReschedulerConfig(
         staged_chunk_lanes=staged_chunk_lanes, staged_early_exit=False
     )
     sel = TorchSolverPlanner(cfg, device="cpu").plan_packed(packed)
@@ -164,7 +250,9 @@ def test_plan_schedule_then_delta_tick():
     then the first drain committed and planned through the delta cache
     equals the schedule's second step."""
     packed = pack_quality(QUALITY_SPEC, 0)
-    planner = TorchSolverPlanner(PlannerConfig(schedule_horizon=6), device="cpu")
+    planner = TorchSolverPlanner(
+        ReschedulerConfig(schedule_horizon=6), device="cpu"
+    )
     steps, mat = planner.plan_schedule_packed(packed)
     np.testing.assert_array_equal(
         mat, plan_schedule_oracle(packed, 6, repair_rounds=8)

@@ -28,9 +28,16 @@ interlock and depth-3 chain pools) widened to 512 pools, 512 on-demand
 and about 1,100 spot nodes: greedy proves 154 of its 512 lanes and
 repair 307 more, so the chip smoke checks repair on the card with it.
 
+The ``ticks`` target runs the JAX package's controller instead: each
+run of ``k8s_spot_rescheduler_tpu_torch/testing.CONTROLLER_RUNS``
+(configs 3 and 4 at seed 0, schedules on and off, a 1 s drain delay)
+and the CLI run of ``testing.CLI_ARGS``, and writes each run's cluster
+digest and per-tick drains, evicted pod UIDs and skip reasons to
+``data/ticks_seed0.json``.
+
 Run from the repo root:
 
-    JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures 3 4 contended
+    JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures 3 4 contended ticks
 
 It writes ``k8s_spot_rescheduler_tpu_torch/data/<name>_seed<seed>.npz``
 (``config3``, ``config4``, ``contended``). The port's tests check that
@@ -39,11 +46,13 @@ each frozen pack still equals a fresh one.
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
 import numpy as np
 
+from k8s_spot_rescheduler_tpu_torch import testing
 from k8s_spot_rescheduler_tpu_torch.models.tensors import save_npz
 
 HORIZON = 32
@@ -199,9 +208,75 @@ def freeze(config_id, seed: int = 0) -> str:
     return path
 
 
+def reference_run(name: str, config_id: int, ticks: int, horizon: int,
+                  seed: int = 0) -> dict:
+    """One controller run of the JAX package (``testing.CONTROLLER_RUNS``)
+    on the CPU: the generated cluster's digest and the per-tick
+    records."""
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS, generate_cluster
+    from k8s_spot_rescheduler_tpu.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    spec = CONFIGS[config_id]
+    client = generate_cluster(spec, seed, reschedule_evicted=True)
+    digest = testing.cluster_digest(client)
+    cfg = testing.controller_config(ReschedulerConfig, spec, horizon)
+    r = Rescheduler(client, SolverPlanner(cfg), cfg, clock=client.clock,
+                    recorder=client)
+    return {
+        "config": config_id,
+        "ticks": ticks,
+        "schedule_horizon": horizon,
+        "digest": digest,
+        "records": testing.run_ticks(r, client, ticks),
+    }
+
+
+def reference_cli_run(seed: int = 0) -> dict:
+    """What the JAX package's CLI does with ``testing.CLI_ARGS``, in
+    process: the same parser, cluster, planner and tick loop."""
+    from k8s_spot_rescheduler_tpu.cli.main import build_parser, config_from_args
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS, generate_cluster
+    from k8s_spot_rescheduler_tpu.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+
+    args = build_parser().parse_args(list(testing.CLI_ARGS))
+    cfg = config_from_args(args)
+    client = generate_cluster(CONFIGS[1], seed, reschedule_evicted=True)
+    r = Rescheduler(client, SolverPlanner(cfg), cfg, clock=client.clock,
+                    recorder=client)
+    return {
+        "args": list(testing.CLI_ARGS),
+        "digest": testing.cluster_digest(client),
+        "records": testing.run_ticks(r, client, args.ticks),
+    }
+
+
+def freeze_ticks(seed: int = 0) -> str:
+    """Write ``testing.TICKS_PATH``: every controller run of
+    ``testing.CONTROLLER_RUNS`` and the CLI run, as the JAX package
+    does them."""
+    out = {
+        "seed": seed,
+        "runs": {
+            name: reference_run(name, config_id, ticks, horizon, seed)
+            for name, config_id, ticks, horizon in testing.CONTROLLER_RUNS
+        },
+        "cli": reference_cli_run(seed),
+    }
+    with open(testing.TICKS_PATH, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    return testing.TICKS_PATH
+
+
 def main(argv) -> int:
     for arg in argv or ["3"]:
-        path = freeze(arg if arg == CONTENDED else int(arg))
+        if arg == "ticks":
+            path = freeze_ticks()
+        else:
+            path = freeze(arg if arg == CONTENDED else int(arg))
         print(f"{path}: {os.path.getsize(path)} bytes")
     return 0
 
