@@ -60,20 +60,38 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
 6. the controller at full width: the port's ``Rescheduler`` with
    ``TorchSolverPlanner`` on the card drives each run of
    ``testing.CONTROLLER_RUNS`` (config 3, 5 ticks with schedules on and
-   3 with ``schedule_horizon=0``; config 4, 3 ticks) from a fresh
-   ``generate_cluster(..., reschedule_evicted=True)`` whose digest must
-   equal the frozen one, and every tick must drain the node, evict the
-   pod UIDs and skip for the reason the JAX package's run did
-   (``data/ticks_seed0.json``), with B1 and B2 launched, no tick on the
-   fallback planner and the fallback counter at 0; each tick's latency
-   and its phase split (from the tick's span tree) are printed. After
-   each run's first plan, B1 and B2 are held bit-identical to their
-   plain versions (results and raw outputs) on the controller's own
-   resident pack and on its first staged chunk; the first run's pack
-   gives B1's and B2's numbers in the ``kernels`` line. Then
+   3 with ``schedule_horizon=0``; config 4, 3 ticks; each through the
+   object path and through the columnar mirror, the default) from a
+   fresh ``generate_cluster(..., reschedule_evicted=True)`` whose digest
+   must equal the frozen one, and every tick must drain the node, evict
+   the pod UIDs and skip for the reason the JAX package's run on the
+   same path did (``data/ticks_seed0.json``), with B1 and B2 launched,
+   no tick on the fallback planner and the fallback counter at 0; every
+   pack must come from the run's observe path (the planner's
+   observations and the ``plan.pack`` spans' ``source`` attribute), so
+   a silent fall back from the mirror to objects fails. Each tick's
+   latency and its phase split (from the tick's span tree) are printed.
+   After each run's first plan, B1 and B2 are held bit-identical to
+   their plain versions (results and raw outputs) on the controller's
+   own resident pack and on its first staged chunk; the first mirror
+   run's pack gives B1's and B2's numbers in the ``kernels`` line. Then
    ``python -m k8s_spot_rescheduler_tpu_torch`` (``testing.CLI_ARGS``)
    runs as a subprocess and must exit 0 draining what the frozen CLI
-   run drained, with ``planner_fallback_total=0``.
+   run drained, with ``planner_fallback_total=0``;
+7. the production observe path: ``testing.StubApiServer`` serves config
+   3 at seed 0 over HTTP on 127.0.0.1; the CLI's ``start_watch_client``
+   seeds a ``WatchingKubeClusterClient`` by LIST (timed), its
+   ``ColumnarFeed`` seeds the mirror (timed), and the port's controller
+   runs ``testing.KUBE_RUNS`` (3 ticks, schedules off), each tick after
+   the mirror caught up with the stub's events, held against the JAX
+   package's frozen run through the same stub, on the mirror, with no
+   fallback planner; each tick's split includes the ``kube.get`` reads.
+   Then ``python -m k8s_spot_rescheduler_tpu_torch --cluster
+   kube:<URL>`` (``testing.KUBE_CLI_ARGS``: watch cache, 2 ticks)
+   against a config-1 stub must exit 0 with the frozen drains and
+   evicted pods and ``planner_fallback_total=0``. B1/B2's ``launches``
+   in the ``kernels`` line are the mirror's path: phase 6's mirror runs
+   and phase 7's runs.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -782,20 +800,53 @@ def past_smem_phase(np, torch, fk) -> list:
 
 
 # span names of a controller tick's trace (utils/tracing.SPAN_NAMES), in
-# the order the phase split prints them
+# the order the phase split prints them; kube.get is each read of the
+# apiserver (the kube path's actuation reads)
 TICK_SPANS = ("observe", "plan.pack", "plan.delta-upload", "plan-dispatch",
-              "plan-fetch", "plan.schedule", "observe-metrics", "actuate")
+              "plan-fetch", "plan.schedule", "observe-metrics", "actuate",
+              "kube.get")
+# the spans the "rest" of a tick is taken after (they do not nest)
+TOP_SPANS = ("observe", "plan-dispatch", "plan-fetch", "plan.schedule",
+             "observe-metrics", "actuate")
 
 
 def span_sums(trace: dict) -> dict:
     """{span name: total ms} over a tick trace's span tree."""
     out = {}
+    for sp in walk_spans(trace):
+        out[sp["name"]] = out.get(sp["name"], 0.0) + sp["dur_ms"]
+    return out
+
+
+def walk_spans(trace: dict):
     stack = list(trace.get("spans", ()))
     while stack:
         sp = stack.pop()
-        out[sp["name"]] = out.get(sp["name"], 0.0) + sp["dur_ms"]
+        yield sp
         stack.extend(sp.get("spans", ()))
-    return out
+
+
+def tick_line(tag, name, tick, tick_ms, trace, drained) -> str:
+    spans = span_sums(trace)
+    named = sum(spans.get(n, 0.0) for n in TOP_SPANS)
+    return (f"[{tag}] {name} tick {tick}: {tick_ms:.1f} ms; "
+            + ", ".join(f"{n} {spans.get(n, 0.0):.1f}" for n in TICK_SPANS)
+            + f", rest (schedule step re-pack + validate, gates, mirror "
+            f"wait) {tick_ms - named:.1f} ms; drained {drained}")
+
+
+def check_observe_path(name, seen, packs, observe) -> None:
+    """The planner packed every plan from the observe path the run
+    names (``testing.track_observations``), and so say the tick traces'
+    ``plan.pack`` spans: a silent fall back to objects fails the run."""
+    want = {"columnar": "ColumnarObservation", "kube": "ColumnarObservation",
+            "objects": "NodeMap"}[observe]
+    span_path = "objects" if observe == "objects" else "columnar"
+    check(seen and set(seen) == {want},
+          f"{name}: the planner packed from {sorted(set(seen))}, not {want}")
+    check(packs and set(packs) == {span_path},
+          f"{name}: plan.pack spans from {sorted(set(packs))}, not "
+          f"{span_path}")
 
 
 def controller_pack_check(np, torch, fk, planner, name):
@@ -893,12 +944,27 @@ def controller_pack_timings(np, torch, fk, dev, host, name, lanes, kind,
     return timings
 
 
+def check_records(name, records, want) -> None:
+    for i, (got, exp) in enumerate(zip(records, want["records"])):
+        # the eviction fan-out is concurrent: UIDs compare as sets
+        exp = dict(exp, evicted=sorted(exp["evicted"]))
+        check(got == exp, f"{name} tick {i + 1}: {got['drained']} "
+              f"evicting {len(got['evicted'])} pods (skipped "
+              f"{got['skipped']!r}) != the JAX package's {exp['drained']} "
+              f"evicting {len(exp['evicted'])} (skipped {exp['skipped']!r})")
+    check(len(records) == len(want["records"]), f"{name}: tick count")
+    check(not any(rec["planner_fallback"] for rec in records),
+          f"{name}: a tick ran on the fallback planner")
+
+
 def controller_phase(np, torch, fk, kind, card, here):
     """Phase 6: the port's controller at full width on the card against
-    the JAX package's frozen runs, then the CLI as a subprocess. Returns
-    the launch counts of the controller runs (reset just before each
-    run, read just after, summed), and B1's and B2's timings on the
-    first run's controller pack (``controller_pack_check``)."""
+    the JAX package's frozen runs, through the object path and through
+    the columnar mirror, then the CLI as a subprocess. Returns the launch
+    counts of the object runs and of the mirror runs (each reset just
+    before a run, read just after, summed by path), and B1's and B2's
+    timings on the first mirror run's controller pack
+    (``controller_pack_check``)."""
     from k8s_spot_rescheduler_tpu_torch import testing
     from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
         CONFIGS,
@@ -913,10 +979,11 @@ def controller_phase(np, torch, fk, kind, card, here):
     from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
 
     frozen = testing.load_ticks()
-    totals = {name: 0 for name in fk.LAUNCHES}
-    timed = None  # (name, lanes, device pack, host pack) of the first run
+    totals = {p: {name: 0 for name in fk.LAUNCHES}
+              for p in ("objects", "columnar")}
+    timed = None  # (name, lanes, device pack, host pack) of the first mirror run
     fallbacks0 = metrics.robustness_snapshot()["planner_fallback"]
-    for name, config_id, ticks, horizon in testing.CONTROLLER_RUNS:
+    for name, config_id, ticks, horizon, observe in testing.CONTROLLER_RUNS:
         want = frozen["runs"][name]
         spec = CONFIGS[config_id]
         t0 = time.perf_counter()
@@ -927,12 +994,22 @@ def controller_phase(np, torch, fk, kind, card, here):
               f"{name}: generated cluster digest {digest[:16]} != frozen "
               f"{want['digest'][:16]} (a numpy stream difference, not a "
               f"drain)")
-        cfg = testing.controller_config(ReschedulerConfig, spec, horizon)
+        cfg = testing.controller_config(ReschedulerConfig, spec, horizon,
+                                        observe)
         planner = TorchSolverPlanner(cfg, device="cuda")
+        seen = testing.track_observations(planner)
         r = Rescheduler(client, planner, cfg, clock=client.clock,
                         recorder=client)
+        mirror_s = None
+        if observe == "columnar":
+            # the mirror attaches at the first tick; its seed is timed here
+            t0 = time.perf_counter()
+            client.columnar_store(cfg.resources,
+                                  on_demand_label=cfg.on_demand_node_label,
+                                  spot_label=cfg.spot_node_label)
+            mirror_s = time.perf_counter() - t0
         fk.reset_launch_counts()
-        records, lines = [], []
+        records, lines, packs = [], [], []
         checked = False
         for tick in range(ticks):
             t0 = time.perf_counter()
@@ -944,41 +1021,32 @@ def controller_phase(np, torch, fk, kind, card, here):
                 # this run gives them (uncounted), after its first plan
                 dev, host = controller_pack_check(np, torch, fk, planner,
                                                   name)
-                if timed is None:
+                if timed is None and observe == "columnar":
                     timed = (name, cfg.staged_chunk_lanes, dev, host)
                 checked = True
-            spans = span_sums((flight.last_tick() or {}).get("trace", {}))
-            named = sum(spans.get(n, 0.0) for n in (
-                "observe", "plan-dispatch", "plan-fetch", "plan.schedule",
-                "observe-metrics", "actuate"))
-            lines.append(
-                f"[6] {name} tick {tick + 1}: {tick_ms:.1f} ms; "
-                + ", ".join(f"{n} {spans.get(n, 0.0):.1f}" for n in TICK_SPANS)
-                + f", rest (schedule step re-pack + validate, gates) "
-                f"{tick_ms - named:.1f} ms; drained {records[-1]['drained']}"
-            )
+            trace = (flight.last_tick() or {}).get("trace", {})
+            packs += [sp.get("attrs", {}).get("source") for sp in
+                      walk_spans(trace) if sp["name"] == "plan.pack"]
+            lines.append(tick_line(6, name, tick + 1, tick_ms, trace,
+                                   records[-1]["drained"]))
         launches = dict(fk.LAUNCHES)
         for k, v in launches.items():
-            totals[k] += v
+            totals[observe][k] += v
         for line in lines:
             log(line + f" on {kind} [{card}]")
-        for i, (got, exp) in enumerate(zip(records, want["records"])):
-            # the eviction fan-out is concurrent: UIDs compare as sets
-            exp = dict(exp, evicted=sorted(exp["evicted"]))
-            check(got == exp, f"{name} tick {i + 1}: {got['drained']} "
-                  f"evicting {len(got['evicted'])} pods (skipped "
-                  f"{got['skipped']!r}) != the JAX package's {exp['drained']} "
-                  f"evicting {len(exp['evicted'])} (skipped {exp['skipped']!r})")
-        check(len(records) == len(want["records"]), f"{name}: tick count")
+        check_records(name, records, want)
+        check_observe_path(name, seen, packs, observe)
         check(checked, f"{name}: no tick planned on the card")
-        check(not any(rec["planner_fallback"] for rec in records),
-              f"{name}: a tick ran on the fallback planner")
         check(launches["B1"] > 0 and launches["B2"] > 0,
               f"{name}: B1/B2 not launched by the controller {launches}")
         log(f"[6] {name} (config {config_id}, {ticks} ticks, schedule_horizon="
-            f"{horizon}): digest == frozen, generated in {gen_s:.1f} s; every "
+            f"{horizon}, observe {observe}"
+            + (f", mirror seeded in {mirror_s * 1e3:.1f} ms" if mirror_s
+               else "")
+            + f"): digest == frozen, generated in {gen_s:.1f} s; every "
             f"tick's drain, evicted pod UIDs and skip == the JAX package's "
             f"({sum(len(rec['evicted']) for rec in records)} pods evicted); "
+            f"planned from {sorted(set(seen))} ({len(seen)} packs); "
             f"launches {launches}; fetches_total={planner.fetches_total}, "
             f"schedule_lens={planner.schedule_lens}")
     check(metrics.robustness_snapshot()["planner_fallback"] == fallbacks0,
@@ -1006,6 +1074,152 @@ def controller_phase(np, torch, fk, kind, card, here):
     name, lanes, dev, host = timed
     return totals, controller_pack_timings(np, torch, fk, dev, host, name,
                                            lanes, kind, card)
+
+
+def kube_phase(torch, fk, kind, card, here):
+    """Phase 7: the production observe path. ``testing.StubApiServer``
+    serves config 3 at the frozen seed over HTTP on 127.0.0.1; the CLI's
+    ``start_watch_client`` seeds a ``WatchingKubeClusterClient`` by LIST
+    (Python decoders), its ``ColumnarFeed`` seeds the mirror, and the
+    port's ``Rescheduler`` ticks against it (``testing.KUBE_RUNS``),
+    each tick after the mirror caught up with the server's events, held
+    against the JAX package's frozen run on the same stub. Then the CLI
+    runs as a subprocess with ``--cluster kube:URL`` against a config-1
+    stub. Returns the launch counts of the kube runs."""
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.cli.main import start_watch_client
+    from k8s_spot_rescheduler_tpu_torch.io.kube import KubeClusterClient
+    from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
+        CONFIGS,
+        generate_cluster,
+    )
+    from k8s_spot_rescheduler_tpu_torch.loop import flight
+    from k8s_spot_rescheduler_tpu_torch.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
+    from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
+        TorchSolverPlanner,
+    )
+    from k8s_spot_rescheduler_tpu_torch.utils.clock import FakeClock
+    from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
+
+    frozen = testing.load_ticks()
+    totals = {name: 0 for name in fk.LAUNCHES}
+    fallbacks0 = metrics.robustness_snapshot()["planner_fallback"]
+    for name, config_id, ticks, horizon in testing.KUBE_RUNS:
+        want = frozen["runs"][name]
+        spec = CONFIGS[config_id]
+        client = generate_cluster(spec, frozen["seed"])
+        check(testing.cluster_digest(client) == want["digest"],
+              f"{name}: generated cluster digest != frozen")
+        t0 = time.perf_counter()
+        stub = testing.StubApiServer.from_cluster(client)
+        encode_s = time.perf_counter() - t0
+        n_pods = len(stub.objects["pods"])
+        cfg = testing.controller_config(ReschedulerConfig, spec, horizon,
+                                        "kube")
+        planner = TorchSolverPlanner(cfg, device="cuda")
+        seen = testing.track_observations(planner)
+        clock = FakeClock()
+        timing = {}
+        lines, packs, records = [], [], []
+
+        def start(kube_client):
+            t0 = time.perf_counter()
+            watching = start_watch_client(kube_client, cfg, clock)
+            timing["list"] = time.perf_counter() - t0
+            return watching
+
+        def seed_mirror(watching):
+            check(hasattr(watching, "columnar_store"),
+                  f"{name}: the watch caches did not sync; the CLI fell "
+                  f"back to polling")
+            t0 = time.perf_counter()
+            watching.columnar_store(cfg.resources,
+                                    on_demand_label=cfg.on_demand_node_label,
+                                    spot_label=cfg.spot_node_label)
+            timing["feed"] = time.perf_counter() - t0
+
+        def make(watching):
+            r = Rescheduler(watching, planner, cfg, clock=clock,
+                            recorder=watching)
+            tick = r.tick
+
+            def timed_tick():
+                t0 = time.perf_counter()
+                res = tick()
+                torch.cuda.synchronize()
+                tick_ms = (time.perf_counter() - t0) * 1e3
+                trace = (flight.last_tick() or {}).get("trace", {})
+                packs.extend(sp.get("attrs", {}).get("source") for sp in
+                             walk_spans(trace) if sp["name"] == "plan.pack")
+                lines.append(tick_line(7, name, len(lines) + 1, tick_ms,
+                                       trace, list(res.drained)))
+                return res
+
+            r.tick = timed_tick
+            return r
+
+        fk.reset_launch_counts()
+        try:
+            records = testing.run_kube(
+                stub, ticks, kube_cls=KubeClusterClient, start_watching=start,
+                clock=clock, make_rescheduler=make, on_ready=seed_mirror)
+        finally:
+            stub.close()
+        launches = dict(fk.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] += v
+        for line in lines:
+            log(line + f" on {kind} [{card}]")
+        check_records(name, records, want)
+        check_observe_path(name, seen, packs, "kube")
+        check(launches["B1"] > 0 and launches["B2"] > 0,
+              f"{name}: B1/B2 not launched on the kube path {launches}")
+        log(f"[7] {name} (config {config_id}, {ticks} ticks, schedule_horizon="
+            f"{horizon}): stub encoded {n_pods} pods in "
+            f"{encode_s:.1f} s; start_watch_client LIST + decode "
+            f"{timing['list'] * 1e3:.1f} ms, ColumnarFeed seed "
+            f"{timing['feed'] * 1e3:.1f} ms; every tick's drain, evicted pod "
+            f"UIDs and skip == the JAX package's through the same stub "
+            f"({sum(len(rec['evicted']) for rec in records)} pods evicted); "
+            f"planned from {sorted(set(seen))}; launches {launches}; "
+            f"planner_fallback_total="
+            f"{int(metrics.robustness_snapshot()['planner_fallback'])} on "
+            f"{kind} [{card}]")
+    check(metrics.robustness_snapshot()["planner_fallback"] == fallbacks0,
+          "the planner-fallback counter moved during the kube runs")
+
+    want = frozen["kube_cli"]
+    client = generate_cluster(CONFIGS[testing.KUBE_CLI_CONFIG], frozen["seed"])
+    check(testing.cluster_digest(client) == want["digest"],
+          "kube CLI: generated cluster digest != frozen")
+    stub = testing.StubApiServer.from_cluster(client)
+    try:
+        argv = [sys.executable, "-m", "k8s_spot_rescheduler_tpu_torch",
+                "--cluster", f"kube:{stub.url}", *testing.KUBE_CLI_ARGS]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=here, env=dict(os.environ,
+                              PYTHONPATH=here), capture_output=True,
+                              text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+    finally:
+        stub.close()
+    check(proc.returncode == 0,
+          f"kube CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    drained = re.findall(r"tick \d+: drained=(\[.*?\])", proc.stderr)
+    check(drained == [repr(d) for d in want["drained"]],
+          f"kube CLI drained {drained}, the JAX package {want['drained']}")
+    check(sorted(stub.evictions) == want["evicted"],
+          "kube CLI: evicted pod UIDs != the JAX package's")
+    fallbacks = re.findall(r"planner_fallback_total=(\d+)", proc.stderr)
+    check(fallbacks == ["0"],
+          f"kube CLI planner_fallback_total {fallbacks}")
+    log(f"[7] python -m k8s_spot_rescheduler_tpu_torch --cluster "
+        f"kube:<stub> {' '.join(testing.KUBE_CLI_ARGS)} (config "
+        f"{testing.KUBE_CLI_CONFIG}): exit 0 in {cli_s:.1f} s, drained "
+        f"{', '.join(drained)} and evicted {len(stub.evictions)} pods == the "
+        f"JAX package's CLI through the same stub, planner_fallback_total=0")
+    return totals
 
 
 def main() -> int:
@@ -1270,11 +1484,16 @@ def main() -> int:
         np, torch, fk, kind, card, here)
     # B1/B2's row: the path whose launches it counts, timed on its pack
     timings.update(tick_timings)
+    kube_launches = kube_phase(torch, fk, kind, card, here)
 
+    # the main path: the controller tick observing through the mirror,
+    # fed by the fake cluster (phase 6) and by the watch (phase 7)
+    mirror = {k: tick_launches["columnar"][k] + kube_launches[k]
+              for k in kube_launches}
     out = []
     for name, launches, path in (
-        ("B1", tick_launches["B1"], "controller tick"),
-        ("B2", tick_launches["B2"], "controller tick"),
+        ("B1", mirror["B1"], "controller tick on the mirror"),
+        ("B2", mirror["B2"], "controller tick on the mirror"),
         ("B3", stream_launches["B3"], "streamed union"),
         ("B4", stream_launches["B4"], "streamed union"),
     ):
@@ -1283,7 +1502,11 @@ def main() -> int:
         row["launches"] = launches
         row["path"] = path
         row["launches_by_path"] = {
-            "controller tick": tick_launches[name],
+            "controller tick, mirror (phase 6)":
+                tick_launches["columnar"][name],
+            "controller tick, kube watch (phase 7)": kube_launches[name],
+            "controller tick, objects (phase 6)":
+                tick_launches["objects"][name],
             "planning tick (phase 3)": main_launches[name],
             "streamed union": stream_launches[name],
         }

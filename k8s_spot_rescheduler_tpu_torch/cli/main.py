@@ -2,22 +2,20 @@
 
 The port of the JAX package's ``cli/main.py``: the reference's flag
 surface (reference rescheduler.go:48-142: 13 pflag flags + glog's -v +
---version), the planner knobs, and the synthetic cluster source
-(``--cluster synthetic:N[:seed]``), with ``--device`` (default
-``cuda``) naming where the planner runs. The reference always talks to
-a live apiserver; this entry point runs against synthetic clusters
-behind the same ClusterClient interface.
+--version), the planner knobs, and the cluster sources: a live
+apiserver (``--cluster kube`` from in-cluster credentials or a
+kubeconfig, ``--cluster kube:URL`` at an explicit URL), served from
+watch caches and the columnar mirror by default (``--watch-cache``,
+``--use-columnar``), with Lease leader election (``--leader-elect*``);
+or a synthetic cluster (``--cluster synthetic:N[:seed]``) behind the
+same ClusterClient interface. ``--device`` (default ``cuda``) names
+where the planner runs.
 
 Not in the parser yet, so argparse refuses them, each with the later
 slice that brings it: ``--serve`` and the planner-service flags
 (``--planner-url(s)``, ``--planner-timeout``, ``--delta-wire-enabled``,
-``--service-*``, ``--device-sick-threshold``), the ``kube`` cluster
-source with ``--running-in-cluster``, ``--kubeconfig``,
-``--kube-retry-*``, ``--watch-cache``, ``--watch-progress-deadline``,
-``--mirror-staleness-budget``, ``--resync-interval`` and
-``--leader-elect*``, ``--use-columnar`` (no source of the port offers a
-columnar mirror yet), the chaos
-profile (``--chaos-*``), the mesh and memory ladder (``--mesh-shape``,
+``--service-*``, ``--device-sick-threshold``), the chaos profile
+(``--chaos-*``), the mesh and memory ladder (``--mesh-shape``,
 ``--auto-shard``, ``--solver-hbm-budget``, ``--carry-chunks``),
 ``--debug-endpoints``, ``--trace-dir`` and the JAX-only
 ``--jax-cache-dir``.
@@ -27,6 +25,8 @@ Run e.g.::
     python -m k8s_spot_rescheduler_tpu_torch --cluster synthetic:1 --ticks 3 -v 2
     python -m k8s_spot_rescheduler_tpu_torch --cluster synthetic:1 --ticks 3 \
         --device cpu --no-metrics-server --node-drain-delay 1s
+    python -m k8s_spot_rescheduler_tpu_torch --cluster kube:http://127.0.0.1:8080 \
+        --ticks 2 --housekeeping-interval 2s --node-drain-delay 1s
 """
 
 from __future__ import annotations
@@ -48,6 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     d = ReschedulerConfig()
     # --- reference flag surface (rescheduler.go:48-108) ---
+    p.add_argument("--running-in-cluster", type=_bool, default=d.running_in_cluster,
+                   help="use in-cluster credentials (reference rescheduler.go:53)")
     p.add_argument("--namespace", default=d.namespace)
     p.add_argument("--housekeeping-interval", default="10s",
                    help="how often rescheduler takes actions (Go duration)")
@@ -57,6 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-graceful-termination", default="2m")
     p.add_argument("--listen-address", default=d.listen_address,
                    help="prometheus metrics address")
+    p.add_argument("--kubeconfig", default=d.kubeconfig)
     p.add_argument("--delete-non-replicated-pods", type=_bool,
                    default=d.delete_non_replicated_pods)
     p.add_argument("--on-demand-node-label", default=d.on_demand_node_label)
@@ -95,6 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=d.max_pods_per_node_hint,
                    help="static padding bound for the solver's pod-slot "
                         "axis (grown automatically when a node exceeds it)")
+    p.add_argument("--use-columnar", type=_bool, default=d.use_columnar,
+                   help="observe via the incrementally-maintained "
+                        "columnar mirror when the cluster source "
+                        "provides one; false = the reference-faithful "
+                        "per-tick object rebuild")
     p.add_argument("--incremental-device-cache", type=_bool,
                    default=d.incremental_device_cache,
                    help="keep the packed problem resident on the device "
@@ -122,6 +130,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default=d.schedule_horizon,
                    help="max drain steps per cut schedule; "
                         "0 = schedules off (the documented opt-out)")
+    p.add_argument("--kube-retry-max", type=int, default=d.kube_retry_max,
+                   help="max transient-retry attempts per kube API read "
+                        "(429/5xx/connection errors, jittered exponential "
+                        "backoff honoring Retry-After; writes are "
+                        "single-attempt — the actuator owns their cadence)")
+    p.add_argument("--kube-retry-base", type=float, default=d.kube_retry_base,
+                   help="base seconds of the kube read retry backoff")
     p.add_argument("--breaker-threshold", type=int, default=d.breaker_threshold,
                    help="consecutive error-skipped ticks before the "
                         "circuit breaker widens the housekeeping interval "
@@ -134,6 +149,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on startup and each tick, remove ToBeDeleted "
                         "taints no active drain owns (crash-safe drain "
                         "recovery; the reference leaves them for CA)")
+    p.add_argument("--watch-progress-deadline", default="2m",
+                   help="kill and reconnect a watch stream that delivers "
+                        "no event, bookmark, or clean close for this "
+                        "long (Go duration; 0 = server timeouts only)")
+    p.add_argument("--mirror-staleness-budget", default="1m",
+                   help="refuse to plan a tick from a watch mirror older "
+                        "than this: the tick degrades to a direct LIST, "
+                        "or skips into the circuit breaker (Go duration; "
+                        "0 disables the freshness gate)")
+    p.add_argument("--resync-interval", default="5m",
+                   help="anti-entropy audit period: a LIST is diffed "
+                        "field-by-field against the watch mirror; drift "
+                        "is counted and healed by a store replace (Go "
+                        "duration; 0 disables)")
     p.add_argument("--trace-enabled", type=_bool, default=d.trace_enabled,
                    help="per-tick span-tree tracing (utils/tracing.py); "
                         "false = phase histograms only")
@@ -145,8 +174,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory the flight recorder auto-dumps a "
                         "redacted JSON postmortem into when a "
                         "degradation edge fires; empty = in-memory only")
+    p.add_argument("--leader-elect", type=_bool, default=False,
+                   help="Lease-based leader election so only one replica "
+                        "acts (restores what reference rescheduler.go:139 "
+                        "removed); kube cluster mode only")
+    p.add_argument("--leader-elect-namespace", default="kube-system")
+    p.add_argument("--leader-elect-identity", default="",
+                   help="holder identity (default: hostname_pid_rand)")
+    p.add_argument("--leader-elect-lease-duration", default="15s",
+                   help="takeover after the holder is quiet this long")
+    p.add_argument("--watch-cache", type=_bool, default=True,
+                   help="serve per-tick reads from watch-backed caches "
+                        "(the reference's lister behavior) instead of "
+                        "polling LISTs; kube cluster mode only")
     p.add_argument("--cluster", default="synthetic:1",
-                   help="cluster source: synthetic:<config#>[:seed]")
+                   help="cluster source: synthetic:<config#>[:seed], "
+                        "kube (apiserver from kubeconfig/in-cluster "
+                        "creds), or kube:<url> (explicit apiserver URL)")
     p.add_argument("--ticks", type=int, default=0,
                    help="run N housekeeping ticks then exit (0 = forever)")
     p.add_argument("--no-metrics-server", action="store_true")
@@ -157,14 +201,46 @@ def _bool(s: str) -> bool:
     return str(s).lower() in ("1", "true", "yes")
 
 
+def start_watch_client(client, config: ReschedulerConfig, clock):
+    """Wrap ``client`` in the watch-backed cache layer and sync it.
+
+    Graceful startup degradation: if the caches fail to sync (apiserver
+    flaky at boot, watch endpoints unreachable), the process does NOT
+    die — it logs a warning, marks the loop degraded (sticky on
+    /healthz and the ``rescheduler_degraded`` gauge), and falls back to
+    the polling client, whose per-tick LISTs need no warm-up."""
+    from k8s_spot_rescheduler_tpu_torch.io.watch import WatchingKubeClusterClient
+    from k8s_spot_rescheduler_tpu_torch.loop import health
+
+    wc = WatchingKubeClusterClient(
+        client,
+        clock=clock,
+        progress_deadline=config.watch_progress_deadline,
+    )
+    try:
+        wc.start()
+        return wc
+    except Exception as err:  # noqa: BLE001 — degrade, don't die
+        log.error(
+            "Watch caches failed to sync (%s); falling back to the "
+            "polling client — degraded (per-tick LISTs) until restart",
+            err,
+        )
+        wc.stop()
+        health.STATE.note_startup_degraded()
+        return client
+
+
 def config_from_args(args) -> ReschedulerConfig:
     return ReschedulerConfig(
+        running_in_cluster=args.running_in_cluster,
         namespace=args.namespace,
         housekeeping_interval=parse_duration(args.housekeeping_interval),
         node_drain_delay=parse_duration(args.node_drain_delay),
         pod_eviction_timeout=parse_duration(args.pod_eviction_timeout),
         max_graceful_termination=parse_duration(args.max_graceful_termination),
         listen_address=args.listen_address,
+        kubeconfig=args.kubeconfig,
         delete_non_replicated_pods=args.delete_non_replicated_pods,
         on_demand_node_label=args.on_demand_node_label,
         spot_node_label=args.spot_node_label,
@@ -173,6 +249,7 @@ def config_from_args(args) -> ReschedulerConfig:
         max_pods_per_node_hint=args.max_pods_per_node_hint,
         max_drains_per_tick=args.max_drains_per_tick,
         fallback_best_fit=args.fallback_best_fit,
+        use_columnar=args.use_columnar,
         solver=args.solver,
         repair_rounds=args.repair_rounds,
         incremental_device_cache=args.incremental_device_cache,
@@ -180,9 +257,14 @@ def config_from_args(args) -> ReschedulerConfig:
         staged_early_exit=args.staged_early_exit,
         plan_schedule_enabled=args.plan_schedule_enabled,
         schedule_horizon=args.schedule_horizon,
+        kube_retry_max=args.kube_retry_max,
+        kube_retry_base=args.kube_retry_base,
         breaker_threshold=args.breaker_threshold,
         breaker_max_interval=parse_duration(args.breaker_max_interval),
         reconcile_orphaned_taints=args.reconcile_orphaned_taints,
+        watch_progress_deadline=parse_duration(args.watch_progress_deadline),
+        mirror_staleness_budget=parse_duration(args.mirror_staleness_budget),
+        resync_interval=parse_duration(args.resync_interval),
         trace_enabled=args.trace_enabled,
         flight_ring_size=args.flight_ring_size,
         flight_dump_dir=args.flight_dump_dir,
@@ -214,42 +296,95 @@ def main(argv=None) -> int:
         TorchSolverPlanner,
     )
 
-    if not args.cluster.startswith("synthetic:"):
+    elector = None
+    if args.cluster.startswith("synthetic:"):
+        from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
+            CONFIGS,
+            generate_cluster,
+        )
+
+        parts = args.cluster.split(":")
+        try:
+            spec = CONFIGS[int(parts[1])]
+            seed = int(parts[2]) if len(parts) > 2 else 0
+        except (KeyError, ValueError, IndexError):
+            print(
+                f"Error: unknown synthetic config {args.cluster!r} "
+                f"(available: {sorted(CONFIGS)})",
+                file=sys.stderr,
+            )
+            return 1
+        log.info("Generating synthetic cluster %s (seed %d)", spec.name, seed)
+        client = generate_cluster(spec, seed, reschedule_evicted=True)
+        # the demo always runs on the fake cluster's virtual clock — pod
+        # termination timers live on it
+        clock = client.clock
+    elif args.cluster == "kube" or args.cluster.startswith("kube:"):
+        from k8s_spot_rescheduler_tpu_torch.io.kube import (
+            KubeClusterClient,
+            from_environment,
+        )
+        from k8s_spot_rescheduler_tpu_torch.utils.clock import RealClock
+
+        try:
+            if args.cluster.startswith("kube:"):
+                # explicit apiserver URL (e.g. kube:http://127.0.0.1:8080)
+                client = KubeClusterClient(args.cluster.split(":", 1)[1])
+            else:
+                client = from_environment(
+                    config.running_in_cluster, config.kubeconfig
+                )
+        except Exception as err:  # noqa: BLE001
+            print(f"Error: failed to create kube client: {err}", file=sys.stderr)
+            return 1
+        # transient-read retry policy (io/kube.py backoff loop)
+        client.retry_max = config.kube_retry_max
+        client.retry_base = config.kube_retry_base
+        clock = RealClock()
+        if args.leader_elect:
+            from k8s_spot_rescheduler_tpu_torch.io.lease import LeaseElector
+
+            elector = LeaseElector(
+                client,
+                identity=args.leader_elect_identity,
+                namespace=args.leader_elect_namespace,
+                lease_duration=parse_duration(
+                    args.leader_elect_lease_duration
+                ),
+            )
+            # renew off-loop so a long drain never lets the lease lapse
+            elector.start_background()
+        if args.watch_cache:
+            client = start_watch_client(client, config, clock)
+    else:
         print(f"Error: unknown --cluster {args.cluster!r}", file=sys.stderr)
         return 1
-    from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
-        CONFIGS,
-        generate_cluster,
-    )
-
-    parts = args.cluster.split(":")
-    try:
-        spec = CONFIGS[int(parts[1])]
-        seed = int(parts[2]) if len(parts) > 2 else 0
-    except (KeyError, ValueError, IndexError):
-        print(
-            f"Error: unknown synthetic config {args.cluster!r} "
-            f"(available: {sorted(CONFIGS)})",
-            file=sys.stderr,
-        )
-        return 1
-    log.info("Generating synthetic cluster %s (seed %d)", spec.name, seed)
-    client = generate_cluster(spec, seed, reschedule_evicted=True)
-    # the demo always runs on the fake cluster's virtual clock — pod
-    # termination timers live on it
-    clock = client.clock
 
     try:
         planner = TorchSolverPlanner(config, device=args.device)
     except (RuntimeError, ValueError) as err:
         print(f"Error: {err}", file=sys.stderr)
         return 1
-    r = Rescheduler(client, planner, config, clock=clock, recorder=client)
+    r = Rescheduler(
+        client, planner, config, clock=clock, recorder=client,
+        # HA: a follower must not perform the startup taint sweep — it
+        # could untaint the LEADER's in-flight drain; the per-tick sweep
+        # runs once this replica is leader-gated into ticking
+        startup_sweep=(elector is None or elector.is_leader),
+        # taint-ownership holder id (defaults to the hostname); an
+        # explicit lease identity overrides it
+        identity=args.leader_elect_identity or None,
+    )
     ticks = 0
     while args.ticks == 0 or ticks < args.ticks:
         # breaker-widened while consecutive observe errors persist
         clock.sleep(r.effective_interval())
+        # a follower's skipped interval still counts toward --ticks so
+        # bounded runs terminate whoever holds the lease
         ticks += 1
+        if elector is not None and not elector.is_leader and not elector.ensure():
+            log.vlog(2, "not the leader; standing by")
+            continue
         result = r.tick()
         if result.drained or result.drain_failed:
             log.info(
@@ -264,6 +399,12 @@ def main(argv=None) -> int:
             )
         else:
             log.info("tick %d: skipped (%s)", ticks, result.skipped)
+    # a bounded run ends its background threads before it reports
+    if elector is not None:
+        elector.stop_background()
+    stop = getattr(client, "stop", None)
+    if stop is not None:
+        stop()
     from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
 
     # ticks the host planner took over from a contained planner crash

@@ -75,6 +75,7 @@ class FakeCluster:
         # pod uid -> number of eviction calls that must fail first
         self.eviction_failures: Dict[str, int] = {}
         self.evictions: List[str] = []  # audit log of successful evictions
+        self._columnar = None  # lazily attached ColumnarStore mirror
         # pod uid -> spot node name: the planner's proven placement for an
         # imminent eviction (DrainPlan.assignments). When set, _schedule
         # tries this node first — standing in for a scheduler that honors
@@ -83,10 +84,40 @@ class FakeCluster:
         # *planner* quality, so they route by the proof).
         self.placement_hints: Dict[str, str] = {}
 
+    # --- columnar fast path ---
+
+    def columnar_store(
+        self, resources, *, on_demand_label: str, spot_label: str
+    ):
+        """Attach (or return) the incrementally-maintained columnar mirror
+        of this cluster — the control loop's vectorized observe path."""
+        from k8s_spot_rescheduler_tpu_torch.models.columnar import ColumnarStore
+
+        store = self._columnar
+        if (
+            store is None
+            or store.resources != tuple(resources)
+            or store.on_demand_label != on_demand_label
+            or store.spot_label != spot_label
+        ):
+            store = ColumnarStore(
+                resources,
+                on_demand_label=on_demand_label,
+                spot_label=spot_label,
+            )
+            for node in self.nodes.values():
+                store.add_node(node)
+            for pod in self.pods.values():
+                store.add_pod(pod)
+            self._columnar = store
+        return store
+
     # --- state construction helpers ---
 
     def add_node(self, node: NodeSpec) -> None:
         self.nodes[node.name] = node
+        if self._columnar is not None:
+            self._columnar.add_node(node)
         self.retry_pending()
 
     def add_pod(self, pod: PodSpec) -> None:
@@ -113,11 +144,15 @@ class FakeCluster:
             }
         else:
             self._by_node.setdefault(pod.node_name, {})[pod.uid] = pod
+        if self._columnar is not None:
+            self._columnar.add_pod(pod)
 
     def _remove_pod(self, uid: str) -> Optional[PodSpec]:
         pod = self.pods.pop(uid, None)
         if pod is not None:
             self._by_node.get(pod.node_name, {}).pop(uid, None)
+        if self._columnar is not None:
+            self._columnar.remove_pod(uid)
         return pod
 
     def remove_node(self, name: str) -> List[PodSpec]:
@@ -127,6 +162,10 @@ class FakeCluster:
         displaced = list(self._by_node.pop(name, {}).values())
         for p in displaced:
             self.pods.pop(p.uid, None)
+            if self._columnar is not None:
+                self._columnar.remove_pod(p.uid)
+        if self._columnar is not None:
+            self._columnar.remove_node(name)
         return displaced
 
     # --- read path ---

@@ -7,15 +7,13 @@ planner with ``solver="numpy"`` -- except for a fault of the card's
 kernels (``ops/ffd_kernels.is_device_fault``) while the planner runs on
 a CUDA device: that one is never contained, and ``tick()`` raises it,
 so no tick's work moves to the host because a kernel failed to build,
-load or launch. The columnar observe path (``_columnar_store``,
-``_wrap_columnar``) engages only for a client that offers a columnar
-mirror and a planner that accepts one; no client or planner of the port
-does yet (``models/columnar`` is a later slice), so every tick observes
-through the object path. The watch mirror's freshness gate and
-anti-entropy audit engage only for a client that reports staleness or
-offers an audit, which no client of the port does yet; their budget and
-period are the reference's defaults (``MIRROR_STALENESS_BUDGET``,
-``RESYNC_INTERVAL``) until the watch slice makes them knobs again.
+load or launch. A tick observes through the columnar mirror
+(``_columnar_store``, ``_wrap_columnar``) whenever the client offers one
+(``io/fake.FakeCluster``, ``io/watch.WatchingKubeClusterClient``), the
+planner accepts one and ``config.use_columnar`` is on, as the
+reference's does; otherwise through the object path. The watch
+mirror's freshness gate and anti-entropy audit read
+``config.mirror_staleness_budget`` and ``config.resync_interval``.
 
 Reimplements the reference's ``run`` (reference rescheduler.go:144-293) —
 the level-triggered observe → plan → actuate tick — against the
@@ -86,12 +84,6 @@ from k8s_spot_rescheduler_tpu_torch.utils.clock import Clock, RealClock
 from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
 from k8s_spot_rescheduler_tpu_torch.utils import logging as log
 from k8s_spot_rescheduler_tpu_torch.utils import tracing
-
-# The reference's defaults of ``mirror_staleness_budget`` and
-# ``resync_interval`` (seconds): the gate refuses to plan from a watch
-# mirror older than the budget, and the audit runs once a period.
-MIRROR_STALENESS_BUDGET = 60.0
-RESYNC_INTERVAL = 300.0
 
 
 @dataclasses.dataclass
@@ -166,7 +158,7 @@ class Rescheduler:
         # --- freshness gate state (docs/ROBUSTNESS.md) ---
         # the client this tick's READS go to: the configured client, or
         # its direct (cache-bypassing) twin while the watch mirror is
-        # staler than MIRROR_STALENESS_BUDGET; writes always go to
+        # staler than mirror_staleness_budget; writes always go to
         # self.client
         self._observe_client = client
         # next anti-entropy audit, wall clock; armed on the first tick
@@ -193,8 +185,10 @@ class Rescheduler:
 
     def _columnar_store(self):
         """The vectorized observe path (models/columnar.py): used when the
-        client maintains a columnar mirror and the planner can consume
-        it."""
+        client maintains a columnar mirror, the planner can consume it,
+        and the config hasn't forced the object path."""
+        if not self.config.use_columnar:
+            return None
         if self._observe_client is not self.client:
             # freshness bypass in effect: the mirror is the thing being
             # bypassed — this tick observes via direct LISTs only
@@ -667,30 +661,30 @@ class Rescheduler:
 
     def _maybe_resync_audit(self) -> None:
         """Run the client's anti-entropy resync audit when due (every
-        ``RESYNC_INTERVAL`` of wall time). Pre-gate like the taint
+        ``resync_interval`` of wall time). Pre-gate like the taint
         sweep: the mirror must stay verified even while cooldown or the
         unschedulable gate holds ticks back. Drift is logged, evented,
         and already healed by the client when this returns."""
         audit = getattr(self.client, "resync_audit", None)
-        if audit is None:
+        if audit is None or self.config.resync_interval <= 0:
             return
         now = self.clock.wall()
         if self._next_resync_wall is None:
             # first tick: the startup LIST just seeded the mirror
-            self._next_resync_wall = now + RESYNC_INTERVAL
+            self._next_resync_wall = now + self.config.resync_interval
             return
         if now < self._next_resync_wall:
             return
         # advance the schedule before running: a failing audit retries
         # at the NEXT interval, not every tick (a down apiserver must
         # not be hammered with the very LISTs the watch path avoids)
-        self._next_resync_wall = now + RESYNC_INTERVAL
+        self._next_resync_wall = now + self.config.resync_interval
         try:
             drift = audit()
         except Exception as err:  # noqa: BLE001, exception-discipline — audit is advisory and rescheduled; a LIST failure was counted by the kube retry layer, and mirror staleness has its own gate + gauge
             log.error(
                 "Anti-entropy resync audit failed (next attempt in "
-                "%.0fs): %s", RESYNC_INTERVAL, err,
+                "%.0fs): %s", self.config.resync_interval, err,
             )
             return
         total = sum(drift.values())
@@ -711,15 +705,15 @@ class Rescheduler:
 
     def _freshness_gate(self) -> Optional[TickResult]:
         """Refuse to observe through a watch mirror staler than
-        ``MIRROR_STALENESS_BUDGET``. Degradation ladder: (1) bypass the
+        ``mirror_staleness_budget``. Degradation ladder: (1) bypass the
         sick cache with the client's direct-LIST twin for this tick;
         (2) no direct path → skip the tick, which feeds the circuit
         breaker. Returns the skip result, or None to proceed (with
         ``self._observe_client`` pointing at this tick's read path)."""
         self._observe_client = self.client
-        budget = MIRROR_STALENESS_BUDGET
+        budget = self.config.mirror_staleness_budget
         stale_fn = getattr(self.client, "mirror_staleness", None)
-        if stale_fn is None:
+        if stale_fn is None or budget <= 0:
             return None
         staleness = float(stale_fn())
         metrics.update_mirror_staleness(staleness)
@@ -755,12 +749,13 @@ class Rescheduler:
         past the budget while the tick observed. Structurally never —
         the gate just measured it — but enforced, so no eviction can
         ever be planned from over-budget data."""
-        if self._observe_client is not self.client:
+        budget = self.config.mirror_staleness_budget
+        if budget <= 0 or self._observe_client is not self.client:
             return False
         stale_fn = getattr(self.client, "mirror_staleness", None)
         if stale_fn is None:
             return False
-        return float(stale_fn()) > MIRROR_STALENESS_BUDGET
+        return float(stale_fn()) > budget
 
     # --- circuit breaker ---
 

@@ -4,7 +4,8 @@ The port of the JAX package's ``metrics/registry.py``, as far as the
 controller, the actuator, the planner and ``loop/health`` call it: the
 reference's four series under namespace ``spot_rescheduler`` (reference
 metrics/metrics.go:28-64), name for name and label for label, plus the
-planner, robustness and freshness series the port's controller updates.
+planner, robustness and freshness series the port's controller updates,
+and the kube client's and the watch mirror's (``io/kube``, ``io/watch``).
 
 The values live in a small store of counters, gauges and histograms in
 this module, so nothing here needs ``prometheus_client``. ``serve``
@@ -220,6 +221,62 @@ schedule_invalidated = _counter(
     "Drain-schedule tails invalidated before execution by churn or a "
     "failed from-scratch re-proof.",
 )
+kube_request_retries = _counter(
+    "kube_request_retries",
+    "Transient kube API read failures (HTTP 429/5xx, connection "
+    "reset/timeout) retried with jittered exponential backoff (reads "
+    "only; writes are single-attempt).",
+)
+kube_request_failures = _counter(
+    "kube_request_failures",
+    "Kube API reads that exhausted the transient-retry budget and "
+    "surfaced their error to the caller.",
+)
+watch_events = _counter(
+    "watch_events",
+    "Object events (ADDED/MODIFIED/DELETED) applied to a watch cache.",
+    ["resource"],
+)
+watch_relists = _counter(
+    "watch_relists",
+    "Full re-LISTs a watcher performed: the seeding LIST, 410-Gone "
+    "recovery and post-error reconciliation.",
+    ["resource"],
+)
+watch_stream_errors = _counter(
+    "watch_stream_errors",
+    "Watch streams that died with a transport or protocol error and were "
+    "reconnected after a backed-off re-LIST.",
+    ["resource"],
+)
+watch_stalls = _counter(
+    "watch_stalls",
+    "Watch streams killed by the client-side progress deadline: open but "
+    "silent past watch_progress_deadline.",
+    ["resource"],
+)
+watch_drift = _counter(
+    "watch_drift",
+    "Objects the anti-entropy resync audit found field-level diverged "
+    "between a fresh LIST and the watch mirror.",
+    ["resource"],
+)
+watch_presence_heals = _counter(
+    "watch_presence_heals",
+    "Objects the audit added or removed to re-sync mirror presence with "
+    "a fresh LIST.",
+    ["resource"],
+)
+resync_audits = _counter(
+    "resync_audits",
+    "Completed anti-entropy audits (one LIST per resource diffed against "
+    "the watch mirror).",
+)
+observe_delta_events = _gauge(
+    "observe_delta_events",
+    "Watch deltas drained into the columnar mirror at the last tick's "
+    "freeze.",
+)
 
 
 def update_nodes_map(on_demand_label: str, spot_label: str, n_on_demand: int, n_spot: int) -> None:
@@ -316,6 +373,46 @@ def update_freshness_bypass() -> None:
 
 def update_mirror_stale_planned() -> None:
     mirror_stale_planned.inc()
+
+
+def update_kube_request_retry() -> None:
+    kube_request_retries.inc()
+
+
+def update_kube_request_failure() -> None:
+    kube_request_failures.inc()
+
+
+def update_watch_event(resource: str) -> None:
+    watch_events.labels(resource).inc()
+
+
+def update_watch_relist(resource: str) -> None:
+    watch_relists.labels(resource).inc()
+
+
+def update_watch_stream_error(resource: str) -> None:
+    watch_stream_errors.labels(resource).inc()
+
+
+def update_watch_stall(resource: str) -> None:
+    watch_stalls.labels(resource).inc()
+
+
+def update_watch_drift(resource: str, n: int) -> None:
+    watch_drift.labels(resource).inc(n)
+
+
+def update_watch_presence_heal(resource: str, n: int) -> None:
+    watch_presence_heals.labels(resource).inc(n)
+
+
+def update_resync_audit() -> None:
+    resync_audits.inc()
+
+
+def update_observe_delta_events(n: int) -> None:
+    observe_delta_events.set(n)
 
 
 def update_conservatism(n_unplaceable: int, by_reason: dict) -> None:

@@ -73,8 +73,8 @@ class DrainSchedule:
     live pack a step validates against is exactly what a fresh plan
     would solve. ``on_step`` (optional) receives each served
     PlanReport — the quality benches' hint-recording hook. ``device``
-    is the owning planner's: each step's from-scratch validation runs
-    there."""
+    (required) is the owning planner's: each step's from-scratch
+    validation runs there."""
 
     def __init__(
         self,
@@ -85,8 +85,8 @@ class DrainSchedule:
         pack_fn: Callable,
         solver_label: str,
         horizon: int,
+        device,
         base_observation=None,
-        device="cpu",
     ):
         self.steps = steps
         self.cursor = 0

@@ -30,8 +30,9 @@ the card and their plain versions on the CPU. With one device the JAX
 package's dispatch ladder (``solver/memory.pick_tier``) always answers
 "single", so this is the union it runs; the carry-streamed union
 (kernels B3/B4) is its per-device block program on the sharded tiers.
-The columnar observe path is a later slice: ``accepts_columnar`` is
-False, so the controller hands this planner a ``NodeMap``.
+The planner packs a classified ``NodeMap`` (the object path) or a
+``models/columnar`` mirror (``accepts_columnar``: the controller's
+default observe path); both pack to the same tensors.
 """
 
 from __future__ import annotations
@@ -82,6 +83,13 @@ _DELTA_MAP = (
 )
 
 
+def _observe_source(observation) -> str:
+    """The observe path a pack came from, for the ``plan.pack`` span's
+    ``source`` attribute (a structural key: the flight recorder keeps its
+    value unredacted)."""
+    return "columnar" if hasattr(observation, "pack") else "objects"
+
+
 class TorchSolverPlanner:
     """The production Planner on one device (``solver="torch"``), or
     the host oracle behind the same surface (``solver="numpy"``).
@@ -89,9 +97,10 @@ class TorchSolverPlanner:
     ``device`` defaults to ``cuda`` (raises without a card); a
     ``solver="numpy"`` planner runs on the host and ignores it."""
 
-    # the columnar observe path is a later slice: the controller always
-    # hands this planner a NodeMap
-    accepts_columnar = False
+    # plans straight from a ColumnarStore snapshot (the vectorized observe
+    # path); the control loop checks this before handing it one instead
+    # of a NodeMap
+    accepts_columnar = True
 
     def __init__(self, config: Optional[ReschedulerConfig] = None, *,
                  device=None):
@@ -250,6 +259,7 @@ class TorchSolverPlanner:
             packed, meta = self._pack_observation(observation, pdbs)
             if pack_sp is not None:
                 pack_sp.attrs["lanes"] = int(packed.slot_req.shape[0])
+                pack_sp.attrs["source"] = _observe_source(observation)
 
         for blocked in meta.blocking_pods():
             log.info("BlockingPod: %s (%s)", blocked.pod.uid, blocked.reason)
@@ -373,7 +383,8 @@ class TorchSolverPlanner:
         cfg = self.config
         horizon = max(1, cfg.schedule_horizon)
         with tracing.span("plan.schedule") as sp:
-            with tracing.span("plan.pack"):
+            with tracing.span("plan.pack",
+                              source=_observe_source(observation)):
                 packed, meta = self._pack_observation(observation, pdbs)
             for blocked in meta.blocking_pods():
                 log.info(

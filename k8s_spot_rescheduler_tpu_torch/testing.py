@@ -34,8 +34,14 @@ each one's layout):
   (bit 31 is a negative int32 word on the card).
 
 ``CONTROLLER_RUNS``, ``controller_config``, ``cluster_digest`` and
-``run_ticks`` drive a controller over a synthetic cluster tick by tick
-and record what each tick did. They are duck-typed over the package, so
+``run_ticks`` drive a controller over a synthetic cluster tick by tick,
+through the object path or the columnar mirror, and record what each
+tick did. ``KUBE_RUNS`` and ``run_kube_ticks`` do the same through a
+watched API server: ``StubApiServer`` serves a synthetic cluster over
+HTTP on 127.0.0.1 (list, watch, eviction, taint patch, events, leases)
+as ``encode_node``/``encode_pod``/``encode_pdb`` write it, and
+``MirrorTracker`` lets a tick wait until the watch mirror has applied
+every event the server sent. They are duck-typed over the package, so
 ``tests/torch_port_fixtures.py`` runs the JAX package's controller
 through them to freeze its drains (``data/ticks_seed0.json``) and
 ``chip_smoke.py`` holds the port's against those.
@@ -48,10 +54,13 @@ lanes from the device-memory workspace.
 
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import json
 import os
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
@@ -271,36 +280,56 @@ def past_smem_pack(seed: int = 0) -> PackedCluster:
 
 # --- controller runs ------------------------------------------------------------
 
-# (name, synthetic config, ticks, schedule_horizon): the controller runs
-# frozen from the JAX package and checked on the card, each from a fresh
-# ``generate_cluster(CONFIGS[config], seed, reschedule_evicted=True)``
+# (name, synthetic config, ticks, schedule_horizon, observe): the
+# controller runs frozen from the JAX package and checked on the card,
+# each from a fresh ``generate_cluster(CONFIGS[config], seed,
+# reschedule_evicted=True)``; ``observe`` is "objects" (the object path,
+# ``use_columnar=False``) or "columnar" (the mirror, the default)
 CONTROLLER_RUNS = (
-    ("config3", 3, 5, 32),
-    ("config3-horizon0", 3, 3, 0),
-    ("config4", 4, 3, 32),
+    ("config3", 3, 5, 32, "objects"),
+    ("config3-horizon0", 3, 3, 0, "objects"),
+    ("config4", 4, 3, 32, "objects"),
+    ("config3-columnar", 3, 5, 32, "columnar"),
+    ("config3-horizon0-columnar", 3, 3, 0, "columnar"),
+    ("config4-columnar", 4, 3, 32, "columnar"),
 )
+# (name, synthetic config, ticks, schedule_horizon): the runs through a
+# ``StubApiServer`` serving the config, a watch client and its columnar
+# mirror (``run_kube_ticks``)
+KUBE_RUNS = (("config3-kube", 3, 3, 0),)
+# the small runs of the frozen file that tier-1 re-runs from the JAX
+# package (``tests/test_torch_controller.py``): columnar and kube
+SMALL_RUNS = (
+    ("config1-columnar", 1, 4, 32, "columnar"),
+    ("config2-columnar", 2, 3, 0, "columnar"),
+)
+SMALL_KUBE_RUNS = (("config1-kube", 1, 3, 32),)
 # the CLI run: ``--cluster synthetic:1`` with these flags
 CLI_ARGS = ("--cluster", "synthetic:1", "--ticks", "3", "--no-metrics-server",
             "--node-drain-delay", "1s")
+# the kube CLI run: ``--cluster kube:<stub URL>`` serving synthetic
+# config ``KUBE_CLI_CONFIG`` at seed 0, with these flags; the
+# housekeeping interval is real time, two ticks a drain delay apart
+KUBE_CLI_CONFIG = 1
+KUBE_CLI_ARGS = ("--watch-cache", "true", "--ticks", "2",
+                 "--no-metrics-server", "--housekeeping-interval", "2s",
+                 "--node-drain-delay", "1s")
 TICKS_PATH = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "data", "ticks_seed0.json"
 )
 
 
-def controller_config(config_cls, spec, horizon: int):
+def controller_config(config_cls, spec, horizon: int, observe: str):
     """The controller runs' configuration, of either package's
     ``ReschedulerConfig`` class: the spec's resources, a 1 s drain delay
-    (a drain each 10 s tick), the object observe path and ``horizon``
-    (0 = schedules off). Only the JAX package's class has
-    ``use_columnar``: the port always observes through objects."""
-    kw = {}
-    if "use_columnar" in {f.name for f in dataclasses.fields(config_cls)}:
-        kw["use_columnar"] = False
+    (a drain each 10 s tick), ``horizon`` (0 = schedules off) and the
+    observe path: ``"objects"`` turns ``use_columnar`` off, anything
+    else leaves the mirror on (its default)."""
     return config_cls(
         node_drain_delay=1.0,
         resources=tuple(spec.resources),
         schedule_horizon=horizon,
-        **kw,
+        use_columnar=observe != "objects",
     )
 
 
@@ -342,3 +371,543 @@ def load_ticks(path: str | None = None) -> dict:
     ticks``), from ``TICKS_PATH`` by default."""
     with open(path or TICKS_PATH) as f:
         return json.load(f)
+
+
+# --- the API server: encoders, stub, mirror tracking -------------------------
+
+# ``PodSpec.anti_affinity_group`` has no field in the pod API: it encodes
+# as its equivalent, a pod label and a hostname anti-affinity term over
+# that label in every namespace
+GROUP_LABEL = "spot-rescheduler.test/anti-affinity-group"
+ALL_NAMESPACES = ("*",)  # predicates/selectors.ALL_NAMESPACES
+
+
+def _quantity(name: str, value: int) -> str:
+    return f"{int(value)}m" if name == "cpu" else str(int(value))
+
+
+def _selector(sel) -> dict:
+    """A canonical selector (tuple of (key, op, values)) as a
+    LabelSelector."""
+    exprs = []
+    for key, op, values in sel:
+        e = {"key": key, "operator": op}
+        if op not in ("Exists", "DoesNotExist"):
+            e["values"] = list(values)
+        exprs.append(e)
+    return {"matchExpressions": exprs}
+
+
+def _term(term, topology_key: str) -> dict:
+    namespaces, sel = term
+    out = {"topologyKey": topology_key, "labelSelector": _selector(sel)}
+    if tuple(namespaces) == ALL_NAMESPACES:
+        out["namespaceSelector"] = {}
+    else:
+        out["namespaces"] = list(namespaces)
+    return out
+
+
+def encode_node(node, uid: str = "") -> dict:
+    """A node API object that ``io/kube.decode_node`` reads back as
+    ``node``."""
+    return {
+        "metadata": {"name": node.name, "uid": uid or f"node-{node.name}",
+                     "labels": dict(node.labels)},
+        "spec": {
+            "taints": [{"key": t.key, "value": t.value, "effect": t.effect}
+                       for t in node.taints],
+            "unschedulable": bool(node.unschedulable),
+        },
+        "status": {
+            "allocatable": {k: _quantity(k, v)
+                            for k, v in node.allocatable.items()},
+            "conditions": [{"type": "Ready",
+                            "status": "True" if node.ready else "False"}],
+        },
+    }
+
+
+def encode_pod(pod, uid: str = "") -> dict:
+    """A pod API object that ``io/kube.decode_pod`` reads back as
+    ``pod``, for every field ``io/synthetic`` sets (``GROUP_LABEL`` for
+    the anti-affinity group)."""
+    labels = dict(pod.labels)
+    anti_host = list(pod.anti_affinity_match)
+    if pod.anti_affinity_group:
+        labels[GROUP_LABEL] = pod.anti_affinity_group
+        anti_host.append(
+            (ALL_NAMESPACES,
+             ((GROUP_LABEL, "In", (pod.anti_affinity_group,)),))
+        )
+    affinity = {}
+    anti = ([_term(t, "kubernetes.io/hostname") for t in anti_host]
+            + [_term(t, "topology.kubernetes.io/zone")
+               for t in pod.anti_affinity_zone_match])
+    if anti:
+        affinity["podAntiAffinity"] = {
+            "requiredDuringSchedulingIgnoredDuringExecution": anti}
+    paff = ([_term(t, "kubernetes.io/hostname")
+             for t in pod.pod_affinity_match]
+            + [_term(t, "topology.kubernetes.io/zone")
+               for t in pod.pod_affinity_zone_match])
+    if paff:
+        affinity["podAffinity"] = {
+            "requiredDuringSchedulingIgnoredDuringExecution": paff}
+    if pod.node_affinity:
+        terms = []
+        for term in pod.node_affinity:
+            exprs, fields = [], []
+            for key, op, values in term:
+                if op in ("FieldIn", "FieldNotIn"):
+                    fields.append({"key": key, "operator": op[5:],
+                                   "values": list(values)})
+                    continue
+                e = {"key": key, "operator": op}
+                if values:
+                    e["values"] = list(values)
+                exprs.append(e)
+            terms.append({"matchExpressions": exprs, "matchFields": fields})
+        affinity["nodeAffinity"] = {
+            "requiredDuringSchedulingIgnoredDuringExecution": {
+                "nodeSelectorTerms": terms}}
+    spec = {
+        "nodeName": pod.node_name,
+        "priority": int(pod.priority),
+        "containers": [{"name": "main", "resources": {"requests": {
+            k: _quantity(k, v) for k, v in pod.requests.items()}}}],
+        "tolerations": [{"key": t.key, "value": t.value,
+                         "operator": t.operator, "effect": t.effect}
+                        for t in pod.tolerations],
+        "nodeSelector": dict(pod.node_selector),
+    }
+    if affinity:
+        spec["affinity"] = affinity
+    if pod.spread_constraints:
+        spec["topologySpreadConstraints"] = [
+            {"topologyKey": topo, "maxSkew": int(skew),
+             "whenUnsatisfiable": "DoNotSchedule",
+             "labelSelector": _selector(sel)}
+            for topo, skew, sel in pod.spread_constraints
+        ]
+    return {
+        "metadata": {
+            "name": pod.name, "namespace": pod.namespace,
+            "uid": uid or f"pod-{pod.namespace}-{pod.name}",
+            "labels": labels, "annotations": dict(pod.annotations),
+            "ownerReferences": [{"kind": r.kind, "name": r.name,
+                                 "controller": bool(r.controller)}
+                                for r in pod.owner_refs],
+        },
+        "spec": spec,
+        "status": {"phase": pod.phase},
+    }
+
+
+def encode_pdb(pdb, uid: str = "") -> dict:
+    """A PodDisruptionBudget API object that ``io/kube.decode_pdb`` reads
+    back as ``pdb``: the match-nothing selector as a nil selector, the
+    empty (select-all) one as ``{}``."""
+    from k8s_spot_rescheduler_tpu_torch.predicates.selectors import (
+        MATCH_NOTHING,
+    )
+
+    sel = pdb.match_labels
+    selector = (None if tuple(sel) == MATCH_NOTHING
+                else _selector(sel) if sel else {})
+    return {
+        "metadata": {"name": pdb.name, "namespace": pdb.namespace,
+                     "uid": uid or f"pdb-{pdb.namespace}-{pdb.name}"},
+        "spec": {"selector": selector},
+        "status": {"disruptionsAllowed": int(pdb.disruptions_allowed)},
+    }
+
+
+_LIST_PATHS = {
+    "/api/v1/nodes": "nodes",
+    "/api/v1/pods": "pods",
+    "/apis/policy/v1/poddisruptionbudgets": "pdbs",
+}
+_LEASES = "/apis/coordination.k8s.io/v1/namespaces/"
+
+
+class _Server(ThreadingHTTPServer):
+    # the drain's eviction fan-out opens up to 32 connections at once: a
+    # listen backlog of socketserver's default 5 drops their SYNs, and
+    # each dropped one waits out TCP's 1 s retransmission timeout
+    request_queue_size = 128
+    daemon_threads = True
+
+
+class StubApiServer:
+    """An API server stub on 127.0.0.1 over the objects it holds.
+
+    LIST (nodes, pods, PDBs, and empty PVC/PV lists), WATCH from a
+    resourceVersion (every event after it, from an event log with one
+    global version counter, then new events as they come; an idle stream
+    closes after ``watch_slice`` seconds, as a server's timeout does),
+    pod and node GET, the eviction subresource (the pod is deleted at
+    once, a DELETED event with a fresh version), merge-patched node taints
+    (a MODIFIED event), events, and Lease GET/POST/PUT with
+    resourceVersion compare-and-swap. ``expire()`` compacts the event
+    log, so a watch from an older version gets 410 Gone and re-lists;
+    ``bookmark`` sends a BOOKMARK. Evicted pods are not re-created: the
+    stub has no scheduler."""
+
+    def __init__(self, watch_slice: float = 0.25) -> None:
+        self.watch_slice = float(watch_slice)
+        self.objects = {"nodes": {}, "pods": {}, "pdbs": {}}
+        # (resource, namespace, name) -> uid, for the GETs by name
+        self._uids = {}
+        self.rv = 10
+        self.last_event_rv = {r: 0 for r in self.objects}
+        self.log = {r: [] for r in self.objects}  # [(rv, event)]
+        self.compacted = 0  # a watch from below this version gets 410
+        self.evictions = []  # evicted pod UIDs (namespace/name)
+        self.patches = []  # (node name, taints)
+        self.events = []
+        self.leases = {}
+        self.list_count = {r: 0 for r in self.objects}
+        self._cond = threading.Condition()
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _send(self, obj, code=200):
+                data = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _body(self):
+                length = int(self.headers.get("Content-Length", 0))
+                return json.loads(self.rfile.read(length) or b"{}")
+
+            def do_GET(self):
+                parsed = urlparse(self.path)
+                qs = parse_qs(parsed.query)
+                resource = _LIST_PATHS.get(parsed.path)
+                if resource is not None:
+                    if qs.get("watch"):
+                        since = int(qs.get("resourceVersion", ["0"])[0] or 0)
+                        return self._watch(resource, since)
+                    return self._send(stub._list(resource))
+                if parsed.path in ("/api/v1/persistentvolumeclaims",
+                                   "/api/v1/persistentvolumes"):
+                    return self._send({"items": []})
+                obj = stub._get(parsed.path)
+                return self._send(obj or {"kind": "Status", "code": 404},
+                                  200 if obj else 404)
+
+            def _watch(self, resource, since):
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.end_headers()
+                sent = since
+                while True:
+                    with stub._cond:
+                        if sent < stub.compacted:
+                            events = [{"type": "ERROR", "object": {
+                                "kind": "Status", "code": 410,
+                                "reason": "Expired",
+                                "message": "too old resource version"}}]
+                        else:
+                            events = [e for rv, e in stub.log[resource]
+                                      if rv > sent]
+                        if not events and not stub._cond.wait(
+                                stub.watch_slice):
+                            return  # idle: the server closes the stream
+                    for event in events:
+                        self.wfile.write((json.dumps(event) + "\n").encode())
+                        if event["type"] == "ERROR":
+                            self.wfile.flush()
+                            return
+                        sent = int(event["object"]["metadata"]
+                                   ["resourceVersion"])
+                    self.wfile.flush()
+
+            def do_POST(self):
+                body = self._body()
+                if self.path.endswith("/eviction"):
+                    ns = self.path.split("/namespaces/")[1].split("/")[0]
+                    name = self.path.split("/pods/")[1].split("/")[0]
+                    code = stub._evict(ns, name)
+                    return self._send({"kind": "Status"}, code)
+                if self.path.endswith("/events"):
+                    stub.events.append(body)
+                    return self._send(body, 201)
+                if self.path.startswith(_LEASES) and \
+                        self.path.endswith("/leases"):
+                    code, obj = stub._lease_create(body)
+                    return self._send(obj, code)
+                return self._send({}, 404)
+
+            def do_PUT(self):
+                body = self._body()
+                if self.path.startswith(_LEASES) and "/leases/" in self.path:
+                    code, obj = stub._lease_update(body)
+                    return self._send(obj, code)
+                return self._send({}, 404)
+
+            def do_PATCH(self):
+                body = self._body()
+                if self.path.startswith("/api/v1/nodes/"):
+                    name = self.path.rsplit("/", 1)[1]
+                    obj = stub._patch_node(name, body)
+                    return self._send(obj or {}, 200 if obj else 404)
+                return self._send({}, 404)
+
+        self.server = _Server(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    @classmethod
+    def from_cluster(cls, client, **kw) -> "StubApiServer":
+        """A stub serving a ``FakeCluster``'s nodes, pods and PDBs."""
+        stub = cls(**kw)
+        for node in client.nodes.values():
+            stub.put("nodes", encode_node(node))
+        for pod in client.pods.values():
+            stub.put("pods", encode_pod(pod))
+        for pdb in client.pdbs:
+            stub.put("pdbs", encode_pdb(pdb))
+        return stub
+
+    @property
+    def url(self) -> str:
+        host, port = self.server.server_address
+        return f"http://{host}:{port}"
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+    # --- state, under the condition's lock ---
+
+    def _store(self, resource: str, obj: dict) -> None:
+        meta = obj["metadata"]
+        self.objects[resource][meta["uid"]] = obj
+        self._uids[resource, meta.get("namespace", ""), meta["name"]] = (
+            meta["uid"])
+
+    def put(self, resource: str, obj: dict) -> None:
+        """Add an object before any client lists (no event)."""
+        with self._cond:
+            self.rv += 1
+            obj["metadata"]["resourceVersion"] = str(self.rv)
+            self._store(resource, obj)
+
+    def push(self, resource: str, etype: str, obj: dict) -> int:
+        """Apply an ADDED/MODIFIED/DELETED change and send its event;
+        returns its version."""
+        with self._cond:
+            self.rv += 1
+            obj = dict(obj, metadata=dict(obj["metadata"],
+                                          resourceVersion=str(self.rv)))
+            meta = obj["metadata"]
+            if etype == "DELETED":
+                self.objects[resource].pop(meta["uid"], None)
+                self._uids.pop(
+                    (resource, meta.get("namespace", ""), meta["name"]), None)
+            else:
+                self._store(resource, obj)
+            self.log[resource].append((self.rv, {"type": etype,
+                                                 "object": obj}))
+            self.last_event_rv[resource] = self.rv
+            self._cond.notify_all()
+            return self.rv
+
+    def bookmark(self, resource: str) -> None:
+        with self._cond:
+            self.rv += 1
+            self.log[resource].append((self.rv, {"type": "BOOKMARK",
+                "object": {"metadata": {"resourceVersion": str(self.rv)}}}))
+            self.last_event_rv[resource] = self.rv
+            self._cond.notify_all()
+
+    def expire(self) -> None:
+        """Compact the event log: watches from any version up to now get
+        410 Gone (and re-list)."""
+        with self._cond:
+            self.compacted = self.rv + 1
+            for events in self.log.values():
+                events.clear()
+            self._cond.notify_all()
+
+    def _list(self, resource: str) -> dict:
+        with self._cond:
+            self.list_count[resource] += 1
+            return {"metadata": {"resourceVersion": str(self.rv)},
+                    "items": list(self.objects[resource].values())}
+
+    def _find(self, resource: str, name: str, ns: str = ""):
+        uid = self._uids.get((resource, ns, name))
+        return None if uid is None else self.objects[resource].get(uid)
+
+    def _get(self, path: str):
+        with self._cond:
+            if path.startswith("/api/v1/namespaces/") and "/pods/" in path:
+                ns = path.split("/namespaces/")[1].split("/")[0]
+                return self._find("pods", path.rsplit("/", 1)[1], ns)
+            if path.startswith("/api/v1/nodes/"):
+                return self._find("nodes", path.rsplit("/", 1)[1])
+            if path.startswith(_LEASES) and "/leases/" in path:
+                return self.leases.get(path)
+            return None
+
+    def _evict(self, ns: str, name: str) -> int:
+        with self._cond:
+            obj = self._find("pods", name, ns)
+            if obj is None:
+                return 404
+            self.evictions.append(f"{ns}/{name}")
+        self.push("pods", "DELETED", obj)
+        return 201
+
+    def _patch_node(self, name: str, body: dict):
+        with self._cond:
+            obj = self._find("nodes", name)
+            if obj is None:
+                return None
+            taints = body.get("spec", {}).get("taints", [])
+            self.patches.append((name, taints))
+            obj = dict(obj, spec=dict(obj["spec"], taints=taints))
+        self.push("nodes", "MODIFIED", obj)
+        return obj
+
+    def _lease_path(self, meta: dict) -> str:
+        return (f"{_LEASES}{meta.get('namespace', '')}/leases/"
+                f"{meta.get('name', '')}")
+
+    def _lease_create(self, body: dict):
+        with self._cond:
+            path = self._lease_path(body.get("metadata", {}))
+            if path in self.leases:
+                return 409, {"kind": "Status", "code": 409}
+            self.rv += 1
+            body["metadata"]["resourceVersion"] = str(self.rv)
+            self.leases[path] = body
+            return 201, body
+
+    def _lease_update(self, body: dict):
+        with self._cond:
+            path = self._lease_path(body.get("metadata", {}))
+            cur = self.leases.get(path)
+            if cur is None:
+                return 404, {"kind": "Status", "code": 404}
+            if body["metadata"].get("resourceVersion") != \
+                    cur["metadata"]["resourceVersion"]:
+                return 409, {"kind": "Status", "code": 409}
+            self.rv += 1
+            body["metadata"]["resourceVersion"] = str(self.rv)
+            self.leases[path] = body
+            return 200, body
+
+
+class MirrorTracker:
+    """Follows the versions a ``WatchingKubeClusterClient``'s watchers
+    have applied (either package's: it wraps each watcher's ``_relist``
+    and ``_apply``; attach before the stub sends its first event).
+    ``wait(stub)`` returns once every resource's mirror holds the last
+    event the stub sent, so a tick frozen after it sees the previous
+    tick's evictions and taints."""
+
+    def __init__(self, watching) -> None:
+        self._cond = threading.Condition()
+        self.applied = {}
+        for w in watching._watchers:
+            resource = _LIST_PATHS[w.list_path]
+            relist, apply = w._relist, w._apply
+
+            def _relist(_relist=relist, _r=resource):
+                rv = _relist()
+                self._note(_r, rv)
+                return rv
+
+            def _apply(event, rv, _apply=apply, _r=resource):
+                out = _apply(event, rv)
+                self._note(_r, out)
+                return out
+
+            w._relist, w._apply = _relist, _apply
+
+    def _note(self, resource: str, rv) -> None:
+        with self._cond:
+            self.applied[resource] = max(self.applied.get(resource, 0),
+                                         int(rv or 0))
+            self._cond.notify_all()
+
+    def wait(self, stub: StubApiServer, timeout: float = 60.0) -> None:
+        want = dict(stub.last_event_rv)
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while any(self.applied.get(r, 0) < v for r, v in want.items()):
+                left = deadline - time.monotonic()
+                if left <= 0 or not self._cond.wait(left):
+                    raise TimeoutError(
+                        f"watch mirror at {self.applied}, the server at {want}"
+                    )
+
+
+def run_kube_ticks(rescheduler, stub: StubApiServer, tracker: MirrorTracker,
+                   clock, ticks: int) -> list:
+    """``run_ticks`` through a watched ``StubApiServer``: before each
+    tick the virtual ``clock`` sleeps the effective interval and the
+    watch mirror catches up with every event the stub sent
+    (``MirrorTracker.wait``); the evicted pod UIDs are the stub's."""
+    out = []
+    for _ in range(ticks):
+        clock.sleep(rescheduler.effective_interval())
+        tracker.wait(stub)
+        seen = len(stub.evictions)
+        res = rescheduler.tick()
+        out.append({
+            "drained": list(res.drained),
+            "evicted": sorted(stub.evictions[seen:]),
+            "skipped": res.skipped,
+            "planner_fallback": bool(res.planner_fallback),
+        })
+    return out
+
+
+def track_observations(planner) -> list:
+    """Wrap ``planner._pack_observation`` (either package's planner:
+    every plan, schedule cut and schedule step packs through it) and
+    return the list it appends each observation's class name to, so a
+    run can assert which observe path it planned from."""
+    seen = []
+    pack = planner._pack_observation
+
+    def _pack(observation, pdbs):
+        seen.append(type(observation).__name__)
+        return pack(observation, pdbs)
+
+    planner._pack_observation = _pack
+    return seen
+
+
+def run_kube(stub: StubApiServer, ticks: int, *, kube_cls, start_watching,
+             clock, make_rescheduler, on_ready=None) -> list:
+    """One controller run through ``stub`` (either package's classes):
+    ``start_watching(kube_cls(stub.url))`` returns the started watch
+    client (the CLI's ``start_watch_client``, say) before the stub sees
+    any event, ``on_ready(watching)`` runs after the seed, then
+    ``make_rescheduler(watching)`` is driven by ``run_kube_ticks`` on the
+    virtual ``clock``. The watchers stop at the end."""
+    watching = start_watching(kube_cls(stub.url))
+    try:
+        tracker = MirrorTracker(watching)
+        if on_ready is not None:
+            on_ready(watching)
+        return run_kube_ticks(make_rescheduler(watching), stub, tracker,
+                              clock, ticks)
+    finally:
+        stop = getattr(watching, "stop", None)
+        if stop is not None:
+            stop()

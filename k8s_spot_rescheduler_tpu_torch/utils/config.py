@@ -12,15 +12,9 @@ Knobs of modules not yet ported are left out, with their modules: the
 mesh and memory ladder (``mesh_shape``, ``auto_shard``,
 ``solver_hbm_budget``, ``carry_chunks``), the planner service and its
 agent (``planner_url(s)``, ``planner_timeout``, ``delta_wire_enabled``,
-``service_*``, ``device_sick_threshold``), the kube client and its watch
-(``kube_retry_*``, ``watch_progress_deadline``), chaos injection
+``service_*``, ``device_sick_threshold``), chaos injection
 (``chaos_*``), the sidecar's ``debug_endpoints`` and the JAX-only
-``jax_cache_dir``. So are the knobs that no source of the port reads
-yet: the kube credentials (``running_in_cluster``, ``kubeconfig``: only
-synthetic clusters are ported), ``use_columnar`` (no client offers a
-columnar mirror) and the watch mirror's ``mirror_staleness_budget`` and
-``resync_interval`` (the controller holds the reference's defaults as
-constants).
+``jax_cache_dir``.
 """
 
 from __future__ import annotations
@@ -37,12 +31,14 @@ class ReschedulerConfig:
 
     Field-by-field parity with the reference flags:
 
+    - ``running_in_cluster``      — rescheduler.go:53-55
     - ``namespace``               — rescheduler.go:57-58
     - ``housekeeping_interval``   — rescheduler.go:63-64 (10 s)
     - ``node_drain_delay``        — rescheduler.go:66-67 (10 min)
     - ``pod_eviction_timeout``    — rescheduler.go:69-71 (2 min)
     - ``max_graceful_termination``— rescheduler.go:73-75 (2 min)
     - ``listen_address``          — rescheduler.go:77-78
+    - ``kubeconfig``              — rescheduler.go:82
     - ``delete_non_replicated_pods`` — rescheduler.go:84
     - ``on_demand_node_label``    — rescheduler.go:98-101
     - ``spot_node_label``         — rescheduler.go:102-105
@@ -68,12 +64,14 @@ class ReschedulerConfig:
       placements are re-proven from scratch before use. 0 disables.
     """
 
+    running_in_cluster: bool = True
     namespace: str = "kube-system"
     housekeeping_interval: float = 10.0
     node_drain_delay: float = 600.0
     pod_eviction_timeout: float = 120.0
     max_graceful_termination: float = 120.0
     listen_address: str = "localhost:9235"
+    kubeconfig: str = ""
     delete_non_replicated_pods: bool = False
     on_demand_node_label: str = "kubernetes.io/role=worker"
     spot_node_label: str = "kubernetes.io/role=spot-worker"
@@ -87,6 +85,11 @@ class ReschedulerConfig:
     max_drains_per_tick: int = 1
     fallback_best_fit: bool = True
     repair_rounds: int = 8
+    # Observe via the incrementally-maintained columnar mirror
+    # (models/columnar.py) when the cluster client provides one — the
+    # vectorized replacement for the per-tick object-model rebuild. Off →
+    # always the reference-faithful object path.
+    use_columnar: bool = True
     # Incremental device-resident tick pipeline:
     # - ``incremental_device_cache`` keeps the previous tick's packed
     #   problem resident on the device and writes only the churn delta
@@ -112,6 +115,12 @@ class ReschedulerConfig:
     plan_schedule_enabled: bool = True
     schedule_horizon: int = 32
     # --- chaos hardening ---
+    # Transient-failure retry policy for kube API READS (io/kube.py):
+    # up to kube_retry_max additional attempts with jittered exponential
+    # backoff from kube_retry_base seconds (Retry-After honored). Writes
+    # stay single-attempt — the actuator owns eviction/taint cadence.
+    kube_retry_max: int = 4
+    kube_retry_base: float = 0.25
     # Observe-error circuit breaker (loop/controller.py): after this many
     # consecutive error-skipped ticks the effective housekeeping interval
     # doubles per further failure, capped at breaker_max_interval;
@@ -121,6 +130,22 @@ class ReschedulerConfig:
     # Crash-safe drain recovery: on startup and once per tick, remove
     # ToBeDeleted taints no active drain owns.
     reconcile_orphaned_taints: bool = True
+    # --- freshness-gated observe path ---
+    # Client-side watch progress deadline (io/watch.py): a stream that
+    # delivers no event, bookmark, or clean server close for this long
+    # is killed and reconnected from its last resourceVersion. 0
+    # disables (server timeouts only).
+    watch_progress_deadline: float = 120.0
+    # Freshness gate (loop/controller.py): a tick whose watch mirror is
+    # older than this budget refuses to plan from it — it degrades to a
+    # direct apiserver LIST, or skips the tick (feeding the circuit
+    # breaker) when no direct path exists. 0 disables the gate.
+    mirror_staleness_budget: float = 60.0
+    # Anti-entropy resync audit (io/watch.py): every interval, one LIST
+    # per watched resource is diffed field-by-field against the
+    # incremental mirror; drift forces a store replace + full repack.
+    # Runs inline on the tick thread. 0 disables.
+    resync_interval: float = 300.0
     # --- tick tracing + flight recorder ---
     # Per-tick span-tree tracing (utils/tracing.py); off = the phase
     # histograms alone.
@@ -152,7 +177,21 @@ class ReschedulerConfig:
             )
         if not self.resources:
             raise ValueError("resources must be non-empty")
+        if self.kube_retry_max < 0:
+            raise ValueError("kube_retry_max must be >= 0 (0 = no retries)")
+        if self.kube_retry_base <= 0:
+            raise ValueError("kube_retry_base must be > 0")
         if self.breaker_threshold < 0:
             raise ValueError("breaker_threshold must be >= 0 (0 = off)")
+        if self.watch_progress_deadline < 0:
+            raise ValueError(
+                "watch_progress_deadline must be >= 0 (0 = off)"
+            )
+        if self.mirror_staleness_budget < 0:
+            raise ValueError(
+                "mirror_staleness_budget must be >= 0 (0 = off)"
+            )
+        if self.resync_interval < 0:
+            raise ValueError("resync_interval must be >= 0 (0 = off)")
         if self.flight_ring_size < 1:
             raise ValueError("flight_ring_size must be >= 1")

@@ -11,14 +11,21 @@ CLI on the CPU against the JAX package.
   one-chunk-at-a-time loop;
 - on ``synthetic:1`` and ``synthetic:2`` the port's ``Rescheduler``
   drains the same nodes and evicts the same pods, tick by tick, as the
-  reference's on the object path, and the reference's columnar path
-  drains the same nodes, with schedules on and off;
-- the port's CLI exits 0 with the same drains.
+  reference's, with schedules on and off: on the columnar mirror (the
+  default observe path, asserted on both sides) and on the object path
+  (``use_columnar=False`` on both sides);
+- through ``testing.StubApiServer`` serving config 1, the port's watch
+  client and mirror drain as the reference's do through the same
+  server;
+- the small runs frozen in ``data/ticks_seed0.json`` equal a fresh run
+  of the JAX package;
+- the port's CLI exits 0 with the same drains, and still refuses the
+  flags of later slices;
+- a ``DrainSchedule`` is not built without its planner's device.
 
 Tolerance: exact everywhere (node names, pod UIDs, integer counts).
 """
 
-import dataclasses
 import logging
 import re
 
@@ -40,11 +47,14 @@ from k8s_spot_rescheduler_tpu.utils.config import (
 )
 from k8s_spot_rescheduler_tpu_torch import testing
 from k8s_spot_rescheduler_tpu_torch.cli.main import main as port_main
+from k8s_spot_rescheduler_tpu_torch.cli.main import start_watch_client
+from k8s_spot_rescheduler_tpu_torch.io import kube as port_kube
 from k8s_spot_rescheduler_tpu_torch.io import synthetic as port_synthetic
 from k8s_spot_rescheduler_tpu_torch.loop.controller import Rescheduler
 from k8s_spot_rescheduler_tpu_torch.metrics import registry as port_metrics
 from k8s_spot_rescheduler_tpu_torch.models import cluster as port_cluster
 from k8s_spot_rescheduler_tpu_torch.models.tensors import to_device
+from k8s_spot_rescheduler_tpu_torch.planner.schedule import DrainSchedule
 from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
     TorchSolverPlanner,
 )
@@ -56,11 +66,13 @@ from k8s_spot_rescheduler_tpu_torch.solver.select import (
     _lane_slice,
     selection_vector,
 )
+from k8s_spot_rescheduler_tpu_torch.utils.clock import FakeClock
 from k8s_spot_rescheduler_tpu_torch.utils.config import (
     ReschedulerConfig as PortConfig,
 )
 from tests.test_solver import _random_packed
 from tests.test_torch_pack import _node_map
+from tests.torch_port_fixtures import reference_kube_run, reference_run
 
 torch.set_num_threads(1)
 
@@ -246,37 +258,107 @@ def test_pipelined_staged_solve_matches_one_chunk_at_a_time(
 # --- the controller and the CLI ---------------------------------------------
 
 
-def _ref_run(case, horizon, ticks, *, columnar=False):
+def _ref_run(case, horizon, ticks, observe):
+    """The reference controller on ``case``: (records, the observation
+    class names its planner packed from)."""
     ref_client, _, spec = _clusters(case)
-    cfg = dataclasses.replace(
-        testing.controller_config(RefConfig, spec, horizon),
-        use_columnar=columnar,
-    )
-    r = RefRescheduler(ref_client, SolverPlanner(cfg), cfg,
+    cfg = testing.controller_config(RefConfig, spec, horizon, observe)
+    planner = SolverPlanner(cfg)
+    seen = testing.track_observations(planner)
+    r = RefRescheduler(ref_client, planner, cfg,
                        clock=ref_client.clock, recorder=ref_client)
-    return testing.run_ticks(r, ref_client, ticks)
+    return testing.run_ticks(r, ref_client, ticks), seen
 
 
-def _port_run(case, horizon, ticks):
+def _port_run(case, horizon, ticks, observe):
     _, port_client, spec = _clusters(case)
-    cfg = testing.controller_config(PortConfig, spec, horizon)
-    r = Rescheduler(port_client, TorchSolverPlanner(cfg, device="cpu"), cfg,
+    cfg = testing.controller_config(PortConfig, spec, horizon, observe)
+    planner = TorchSolverPlanner(cfg, device="cpu")
+    seen = testing.track_observations(planner)
+    r = Rescheduler(port_client, planner, cfg,
                     clock=port_client.clock, recorder=port_client)
-    return testing.run_ticks(r, port_client, ticks)
+    return testing.run_ticks(r, port_client, ticks), seen
 
 
 @pytest.mark.parametrize("horizon", [32, 0], ids=["schedules", "horizon0"])
 @pytest.mark.parametrize("case, ticks", [("config1", 4), ("config2", 3)])
 def test_rescheduler_drains_as_the_reference(case, ticks, horizon):
+    """The object path (``use_columnar=False``) on both sides; the
+    reference's mirror drains the same nodes."""
     before = port_metrics.robustness_snapshot()["planner_fallback"]
-    got = _port_run(case, horizon, ticks)
-    want = _ref_run(case, horizon, ticks)
+    got, seen = _port_run(case, horizon, ticks, "objects")
+    want, ref_seen = _ref_run(case, horizon, ticks, "objects")
     assert got == want
+    assert set(seen) == set(ref_seen) == {"NodeMap"}
     assert any(rec["drained"] for rec in got)
     assert not any(rec["planner_fallback"] for rec in got)
     assert port_metrics.robustness_snapshot()["planner_fallback"] == before
-    columnar = _ref_run(case, horizon, ticks, columnar=True)
+    columnar, _ = _ref_run(case, horizon, ticks, "columnar")
     assert [r["drained"] for r in columnar] == [r["drained"] for r in got]
+
+
+@pytest.mark.parametrize("horizon", [32, 0], ids=["schedules", "horizon0"])
+@pytest.mark.parametrize("case, ticks", [("config1", 4), ("config2", 3)])
+def test_rescheduler_drains_as_the_reference_on_the_mirror(case, ticks,
+                                                           horizon):
+    """The default observe path: both controllers plan every tick from
+    the columnar mirror (``ColumnarObservation``), with the same drains
+    and evicted pod UIDs tick by tick."""
+    before = port_metrics.robustness_snapshot()["planner_fallback"]
+    got, seen = _port_run(case, horizon, ticks, "columnar")
+    want, ref_seen = _ref_run(case, horizon, ticks, "columnar")
+    assert got == want
+    assert seen and set(seen) == set(ref_seen) == {"ColumnarObservation"}
+    assert any(rec["drained"] for rec in got)
+    assert not any(rec["planner_fallback"] for rec in got)
+    assert port_metrics.robustness_snapshot()["planner_fallback"] == before
+
+
+@pytest.mark.parametrize("horizon", [32, 0], ids=["schedules", "horizon0"])
+def test_rescheduler_drains_as_the_reference_through_the_stub(horizon):
+    """Config 1 served by ``testing.StubApiServer``: the port's
+    ``start_watch_client``, ``ColumnarFeed`` and controller against the
+    reference's through the same kind of server, each tick after the
+    mirror caught up with the server's events."""
+    name, config_id, ticks, _ = testing.SMALL_KUBE_RUNS[0]
+    spec = port_synthetic.CONFIGS[config_id]
+    cfg = testing.controller_config(PortConfig, spec, horizon, "columnar")
+    planner = TorchSolverPlanner(cfg, device="cpu")
+    seen = testing.track_observations(planner)
+    clock = FakeClock()
+    stub = testing.StubApiServer.from_cluster(
+        port_synthetic.generate_cluster(spec, 0))
+    try:
+        got = testing.run_kube(
+            stub, ticks, kube_cls=port_kube.KubeClusterClient,
+            start_watching=lambda kc: start_watch_client(kc, cfg, clock),
+            clock=clock,
+            make_rescheduler=lambda wc: Rescheduler(
+                wc, planner, cfg, clock=clock, recorder=wc),
+        )
+    finally:
+        stub.close()
+    assert seen and set(seen) == {"ColumnarObservation"}
+    want = reference_kube_run(name, config_id, ticks, horizon)["records"]
+    assert got == want
+    assert any(rec["drained"] for rec in got)
+    assert not any(rec["planner_fallback"] for rec in got)
+
+
+@pytest.mark.parametrize("run", [r[0] for r in (
+    *testing.SMALL_RUNS, *testing.SMALL_KUBE_RUNS)])
+def test_frozen_small_runs_match_a_fresh_reference_run(run):
+    """``data/ticks_seed0.json`` is what the JAX package does now: its
+    config 1-2 mirror and stub runs equal a fresh run."""
+    frozen = testing.load_ticks()["runs"][run]
+    small = {r[0]: r for r in testing.SMALL_RUNS}
+    if run in small:
+        fresh = reference_run(*small[run])
+    else:
+        fresh = reference_kube_run(
+            *{r[0]: r for r in testing.SMALL_KUBE_RUNS}[run])
+    assert fresh == frozen
+    assert any(rec["drained"] for rec in frozen["records"])
 
 
 def test_cli_drains_as_the_reference(caplog):
@@ -298,19 +380,51 @@ def test_cli_drains_as_the_reference(caplog):
     assert f"planner_fallback_total={int(total)}" in caplog.messages
 
 
-def test_cli_refuses_the_flags_of_later_slices(capsys):
+def test_cli_refuses_the_flags_of_later_slices():
+    """The flags whose modules are not ported exit 2; the kube source,
+    the watch, the mirror and the lease are accepted (the drains through
+    a stub server: ``tests/test_torch_kube.py``)."""
     for argv in (["--serve", "127.0.0.1:1"], ["--planner-url", "x"],
-                 ["--leader-elect", "true"], ["--chaos-profile", "flaky"],
-                 ["--trace-dir", "/tmp/t"], ["--jax-cache-dir", "/tmp/j"],
-                 ["--watch-cache", "true"], ["--use-columnar", "true"],
-                 ["--mirror-staleness-budget", "1m"],
-                 ["--resync-interval", "5m"],
-                 ["--running-in-cluster", "true"], ["--kubeconfig", "k"]):
+                 ["--planner-urls", "x,y"], ["--planner-timeout", "1s"],
+                 ["--delta-wire-enabled", "true"],
+                 ["--service-batch-window", "1s"],
+                 ["--device-sick-threshold", "3"],
+                 ["--chaos-profile", "flaky"], ["--mesh-shape", "2x2"],
+                 ["--auto-shard", "true"], ["--solver-hbm-budget", "1"],
+                 ["--carry-chunks", "2"], ["--debug-endpoints", "true"],
+                 ["--trace-dir", "/tmp/t"], ["--jax-cache-dir", "/tmp/j"]):
         with pytest.raises(SystemExit) as exc:
             port_main(argv)
-        assert exc.value.code == 2
-    assert port_main(["--cluster", "kube", "--no-metrics-server"]) == 1
-    assert "unknown --cluster" in capsys.readouterr().err
+        assert exc.value.code == 2, argv
+    from k8s_spot_rescheduler_tpu_torch.cli.main import (
+        build_parser,
+        config_from_args,
+    )
+
+    args = build_parser().parse_args([
+        "--cluster", "kube:http://127.0.0.1:1", "--watch-cache", "false",
+        "--use-columnar", "false", "--running-in-cluster", "false",
+        "--kubeconfig", "k", "--kube-retry-max", "2",
+        "--kube-retry-base", "0.5", "--watch-progress-deadline", "30s",
+        "--mirror-staleness-budget", "2m", "--resync-interval", "0s",
+        "--leader-elect", "true", "--leader-elect-namespace", "ns",
+        "--leader-elect-identity", "me",
+        "--leader-elect-lease-duration", "20s",
+    ])
+    cfg = config_from_args(args)
+    assert (cfg.use_columnar, cfg.running_in_cluster, cfg.kubeconfig,
+            cfg.kube_retry_max, cfg.kube_retry_base,
+            cfg.watch_progress_deadline, cfg.mirror_staleness_budget,
+            cfg.resync_interval) == (False, False, "k", 2, 0.5, 30.0,
+                                     120.0, 0.0)
+    assert not args.watch_cache and args.leader_elect
+    assert PortConfig().use_columnar
+
+
+def test_drain_schedule_requires_its_planners_device():
+    with pytest.raises(TypeError, match="device"):
+        DrainSchedule([], None, None, pack_fn=lambda o, p: None,
+                      solver_label="torch+schedule", horizon=32)
 
 
 class _FailingPlanner(TorchSolverPlanner):
@@ -365,7 +479,7 @@ def test_kernel_fault_on_the_card_is_not_contained(device, error, contained,
         "planner": ValueError("a bug in the planner"),
     }[error]
     _, client, spec = _clusters("config1")
-    cfg = testing.controller_config(PortConfig, spec, horizon)
+    cfg = testing.controller_config(PortConfig, spec, horizon, "columnar")
     r = Rescheduler(client, _FailingPlanner(cfg, device, err), cfg,
                     clock=client.clock, recorder=client)
     before = port_metrics.robustness_snapshot()["planner_fallback"]
@@ -380,7 +494,7 @@ def test_kernel_fault_on_the_card_is_not_contained(device, error, contained,
     assert got[0]["planner_fallback"] and got[0]["drained"]
     assert port_metrics.robustness_snapshot()["planner_fallback"] > before
     assert [rec["drained"] for rec in got] == [
-        rec["drained"] for rec in _ref_run("config1", horizon, 1)
+        rec["drained"] for rec in _ref_run("config1", horizon, 1, "columnar")[0]
     ]
 
 

@@ -30,10 +30,16 @@ repair 307 more, so the chip smoke checks repair on the card with it.
 
 The ``ticks`` target runs the JAX package's controller instead: each
 run of ``k8s_spot_rescheduler_tpu_torch/testing.CONTROLLER_RUNS``
-(configs 3 and 4 at seed 0, schedules on and off, a 1 s drain delay)
-and the CLI run of ``testing.CLI_ARGS``, and writes each run's cluster
-digest and per-tick drains, evicted pod UIDs and skip reasons to
-``data/ticks_seed0.json``.
+(configs 3 and 4 at seed 0, schedules on and off, a 1 s drain delay,
+through the object path and through the columnar mirror) and of
+``testing.SMALL_RUNS`` (configs 1 and 2 on the mirror, which tier-1
+re-runs to check the file); each run of ``testing.KUBE_RUNS`` and
+``testing.SMALL_KUBE_RUNS`` through a ``testing.StubApiServer`` serving
+the config, a watch client and its mirror; the CLI run of
+``testing.CLI_ARGS``; and ``python -m k8s_spot_rescheduler_tpu
+--cluster kube:<stub URL>`` with ``testing.KUBE_CLI_ARGS`` as a
+subprocess. It writes each run's cluster digest and per-tick drains,
+evicted pod UIDs and skip reasons to ``data/ticks_seed0.json``.
 
 Run from the repo root:
 
@@ -209,10 +215,10 @@ def freeze(config_id, seed: int = 0) -> str:
 
 
 def reference_run(name: str, config_id: int, ticks: int, horizon: int,
-                  seed: int = 0) -> dict:
+                  observe: str, seed: int = 0) -> dict:
     """One controller run of the JAX package (``testing.CONTROLLER_RUNS``)
     on the CPU: the generated cluster's digest and the per-tick
-    records."""
+    records; the planner must have packed from the observe path named."""
     from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS, generate_cluster
     from k8s_spot_rescheduler_tpu.loop.controller import Rescheduler
     from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
@@ -221,15 +227,106 @@ def reference_run(name: str, config_id: int, ticks: int, horizon: int,
     spec = CONFIGS[config_id]
     client = generate_cluster(spec, seed, reschedule_evicted=True)
     digest = testing.cluster_digest(client)
-    cfg = testing.controller_config(ReschedulerConfig, spec, horizon)
-    r = Rescheduler(client, SolverPlanner(cfg), cfg, clock=client.clock,
+    cfg = testing.controller_config(ReschedulerConfig, spec, horizon, observe)
+    planner = SolverPlanner(cfg)
+    seen = testing.track_observations(planner)
+    r = Rescheduler(client, planner, cfg, clock=client.clock,
                     recorder=client)
+    records = testing.run_ticks(r, client, ticks)
+    want = "ColumnarObservation" if observe == "columnar" else "NodeMap"
+    assert seen and set(seen) == {want}, (name, set(seen))
     return {
         "config": config_id,
         "ticks": ticks,
         "schedule_horizon": horizon,
+        "observe": observe,
         "digest": digest,
-        "records": testing.run_ticks(r, client, ticks),
+        "records": records,
+    }
+
+
+def reference_kube_run(name: str, config_id: int, ticks: int, horizon: int,
+                       seed: int = 0) -> dict:
+    """One controller run of the JAX package through a
+    ``testing.StubApiServer`` serving the config (``testing.KUBE_RUNS``):
+    the CLI's ``start_watch_client``, its columnar mirror, a virtual
+    clock."""
+    from k8s_spot_rescheduler_tpu.cli.main import start_watch_client
+    from k8s_spot_rescheduler_tpu.io.kube import KubeClusterClient
+    from k8s_spot_rescheduler_tpu.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+    from k8s_spot_rescheduler_tpu.utils.clock import FakeClock
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+    from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
+        CONFIGS,
+        generate_cluster,
+    )
+
+    spec = CONFIGS[config_id]
+    client = generate_cluster(spec, seed)
+    cfg = testing.controller_config(ReschedulerConfig, spec, horizon,
+                                    "columnar")
+    planner = SolverPlanner(cfg)
+    seen = testing.track_observations(planner)
+    clock = FakeClock()
+    stub = testing.StubApiServer.from_cluster(client)
+    try:
+        records = testing.run_kube(
+            stub, ticks, kube_cls=KubeClusterClient,
+            start_watching=lambda kc: start_watch_client(kc, cfg, clock),
+            clock=clock,
+            make_rescheduler=lambda wc: Rescheduler(
+                wc, planner, cfg, clock=clock, recorder=wc),
+        )
+    finally:
+        stub.close()
+    assert seen and set(seen) == {"ColumnarObservation"}, (name, set(seen))
+    return {
+        "config": config_id,
+        "ticks": ticks,
+        "schedule_horizon": horizon,
+        "observe": "kube",
+        "digest": testing.cluster_digest(client),
+        "records": records,
+    }
+
+
+def reference_kube_cli_run(seed: int = 0) -> dict:
+    """``python -m k8s_spot_rescheduler_tpu --cluster kube:<URL>`` with
+    ``testing.KUBE_CLI_ARGS`` as a subprocess against a stub serving
+    ``testing.KUBE_CLI_CONFIG``: the drains its log reports per tick and
+    the pod UIDs the stub saw evicted."""
+    import ast
+    import re
+    import subprocess
+
+    from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
+        CONFIGS,
+        generate_cluster,
+    )
+
+    client = generate_cluster(CONFIGS[testing.KUBE_CLI_CONFIG], seed)
+    stub = testing.StubApiServer.from_cluster(client)
+    root = os.path.dirname(os.path.dirname(DATA_DIR))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "k8s_spot_rescheduler_tpu",
+             "--cluster", f"kube:{stub.url}", *testing.KUBE_CLI_ARGS],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root,
+                               JAX_PLATFORMS="cpu"),
+            capture_output=True, text=True, timeout=600,
+        )
+    finally:
+        stub.close()
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    drained = [ast.literal_eval(m) for m in re.findall(r"tick \d+: drained=(\[.*?\])",
+                                           proc.stderr)]
+    return {
+        "config": testing.KUBE_CLI_CONFIG,
+        "args": list(testing.KUBE_CLI_ARGS),
+        "digest": testing.cluster_digest(client),
+        "drained": drained,
+        "evicted": sorted(stub.evictions),
     }
 
 
@@ -257,13 +354,21 @@ def freeze_ticks(seed: int = 0) -> str:
     """Write ``testing.TICKS_PATH``: every controller run of
     ``testing.CONTROLLER_RUNS`` and the CLI run, as the JAX package
     does them."""
+    runs = {
+        name: reference_run(name, config_id, ticks, horizon, observe, seed)
+        for name, config_id, ticks, horizon, observe in (
+            *testing.CONTROLLER_RUNS, *testing.SMALL_RUNS)
+    }
+    runs.update(
+        (name, reference_kube_run(name, config_id, ticks, horizon, seed))
+        for name, config_id, ticks, horizon in (
+            *testing.KUBE_RUNS, *testing.SMALL_KUBE_RUNS)
+    )
     out = {
         "seed": seed,
-        "runs": {
-            name: reference_run(name, config_id, ticks, horizon, seed)
-            for name, config_id, ticks, horizon in testing.CONTROLLER_RUNS
-        },
+        "runs": runs,
         "cli": reference_cli_run(seed),
+        "kube_cli": reference_kube_cli_run(seed),
     }
     with open(testing.TICKS_PATH, "w") as f:
         json.dump(out, f, indent=1)
