@@ -91,7 +91,32 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    against a config-1 stub must exit 0 with the frozen drains and
    evicted pods and ``planner_fallback_total=0``. B1/B2's ``launches``
    in the ``kernels`` line are the mirror's path: phase 6's mirror runs
-   and phase 7's runs.
+   and phase 7's runs;
+8. the multi-tenant planner service: the port's ``ServiceServer`` on
+   the card (its kernels built before it listens; ``/healthz`` must name
+   B1t/B2t) serves 8 agents (``testing.SERVICE_TENANTS``: configs 3 and
+   4 at seeds 0-3, each its own fake cluster at full size, every pack in
+   one bucket C=4096 K=64 S=4096), whose cluster digests and first packs'
+   fingerprints must equal the frozen ones (``data/service_seed0.json``,
+   the JAX package's service on the CPU). Released together, one
+   connection each: every selection and every 32-step schedule must
+   equal the JAX service's; then ``SERVICE_TICKS`` controller ticks of
+   every agent together (the second ships a delta, scattered on the
+   card) must drain the frozen nodes and evict the frozen pod UIDs, with
+   no agent on its local fallback, the device never marked sick, a batch
+   of at least 4 tenants, and every single-plan batch exactly one B1t
+   and one B2t launch. Each batch's split (queue wait, assemble, delta
+   scatter, upload, solve, fetch, reply) and the per-tenant latency are
+   printed beside the same 8 plans made solo by one
+   ``TorchSolverPlanner``; B1t/B2t are held bit-identical to their plain
+   version and to solo B1/B2 launches on the batch's stack, on it with
+   an all-invalid pad tenant and on ``past_smem_pack`` stacked T=3, and
+   timed on the batch's stack (their launches in the ``kernels`` line
+   are the service's path). Last ``python -m
+   k8s_spot_rescheduler_tpu_torch --serve`` runs with an agent CLI
+   (``--planner-url``) on config 1, which must drain as the frozen JAX
+   CLI run with ``remote_planner_fallback_total=0``, the service
+   exiting 0 on SIGTERM.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -230,22 +255,40 @@ def same(torch, a, b) -> float:
 def ffd_bound(np, packed, raw_chosen, best_fit: bool):
     """(bound_ms, bound_by) of one greedy pass on ``packed``: the bytes
     the function must move over the card's memory rate, and the
-    predicate operations this data needs over the f32 rate. Both count
-    what this data needs. Bytes: the request, toleration and affinity
-    rows of live slots (valid slots of valid lanes; the kernel skips
-    the rest), the validity bits of valid lanes, ``cand_valid`` and
-    every spot array once, feasible + assignment written once.
-    Operations: each tested (pod, spot) pair costs R + W + A + 3 (+2 for
-    best-fit's slack compare); first-fit needs the spots up to the
-    first fit (all S when none fits), best-fit all S."""
+    predicate operations this data needs over the f32 rate
+    (``ffd_work``)."""
+    return work_bound(*ffd_work(np, packed, raw_chosen, best_fit))
+
+
+def work_bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by) of ``nbytes`` moved and ``ops`` f32
+    operations on the card."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = ops / H100_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ffd_work(np, packed, raw_chosen, best_fit: bool):
+    """(bytes, operations) one greedy pass on ``packed`` needs, counting
+    what this data needs. Only the spots up to the last usable one
+    count (``spot_ok``): past it no pod can fit, and a bucket's pad
+    spots (not ok, at the end) are no work the tenant needs. Bytes: the
+    request, toleration and affinity rows of live slots (valid slots of
+    valid lanes; the kernel skips the rest), the validity bits of valid
+    lanes, ``cand_valid`` and those spots' arrays once, feasible +
+    assignment written once. Operations: each tested (pod, spot) pair
+    costs R + W + A + 3 (+2 for best-fit's slack compare); first-fit
+    needs the spots up to the first fit (all of them when none fits),
+    best-fit all of them."""
     C, K, R = packed.slot_req.shape
-    S = packed.spot_free.shape[0]
+    ok = np.flatnonzero(np.asarray(packed.spot_ok))
+    S = int(ok[-1]) + 1 if ok.size else 0
     W = packed.spot_taints.shape[1]
     A = packed.spot_aff.shape[1]
     cand = np.asarray(packed.cand_valid)
     live = np.asarray(packed.slot_valid) & cand[:, None]
     spot_bytes = sum(
-        np.asarray(getattr(packed, f)).nbytes
+        np.asarray(getattr(packed, f))[:S].nbytes
         for f in packed._fields if f.startswith("spot_")
     )
     nbytes = (
@@ -260,9 +303,7 @@ def ffd_bound(np, packed, raw_chosen, best_fit: bool):
         chosen = np.asarray(raw_chosen)
         tested = int(np.where(chosen >= 0, chosen + 1, S)[live].sum())
         per = R + W + A + 3
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = tested * per / H100_F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return nbytes, tested * per
 
 
 def geometry_line(fk, packed, best_fit: bool, **kw) -> str:
@@ -1222,6 +1263,406 @@ def kube_phase(torch, fk, kind, card, here):
     return totals
 
 
+def stack_host(np, packs):
+    """Host packs of one shape stacked along a leading tenant axis."""
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import PackedCluster
+
+    return PackedCluster(*(
+        np.stack([getattr(p, f) for p in packs]) for f in PackedCluster._fields
+    ))
+
+
+def tenant_check(np, torch, fk, stacked, what: str) -> float:
+    """B1t and B2t on the stacked pack (on the card) against their plain
+    version and against one solo B1/B2 launch per tenant, results and
+    raw outputs; the launches are not counted. Returns max |err|."""
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import tenant_slice
+
+    saved = dict(fk.LAUNCHES)
+    err = 0.0
+    for bf in (False, True):
+        got = fk.plan_ffd_tenants_kernel(stacked, best_fit=bf)
+        raw_f, raw_c = fk.launch_tenants_raw(stacked, bf)
+        plain = fk.plan_ffd_tenants_plain(stacked, bf)
+        err = max(err, same(torch, got, plain))
+        for t in range(stacked.slot_req.shape[0]):
+            tenant = tenant_slice(stacked, t)
+            solo = fk.plan_ffd_kernel(tenant, best_fit=bf)
+            f, c = fk.launch_raw(tenant, bf)
+            torch.cuda.synchronize()
+            check(torch.equal(got.feasible[t], solo.feasible)
+                  and torch.equal(got.assignment[t], solo.assignment)
+                  and torch.equal(raw_f[t], f) and torch.equal(raw_c[t], c),
+                  f"{what}: B{'2' if bf else '1'}t tenant {t} != its solo "
+                  f"launch")
+        check(err == 0, f"{what}: B{'2' if bf else '1'}t != plain")
+    fk.LAUNCHES.update(saved)
+    return err
+
+
+def service_phase(np, torch, fk, kind, card, here):
+    """Phase 8: the multi-tenant planner service on the card (see the
+    module docstring). Returns (launches of the agents' path, the
+    kernels-line rows of B1t and B2t)."""
+    import threading
+    import urllib.request
+
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
+        CONFIGS,
+        generate_cluster,
+    )
+    from k8s_spot_rescheduler_tpu_torch.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
+    from k8s_spot_rescheduler_tpu_torch.models.delta import pack_fingerprint
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import (
+        PackedCluster,
+        tenant_slice,
+        to_device,
+    )
+    from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
+        TorchSolverPlanner,
+    )
+    from k8s_spot_rescheduler_tpu_torch.service import buckets, wire
+    from k8s_spot_rescheduler_tpu_torch.service.agent import (
+        PooledWireTransport,
+        RemotePlanner,
+    )
+    from k8s_spot_rescheduler_tpu_torch.service.server import ServiceServer
+    from k8s_spot_rescheduler_tpu_torch.testing import past_smem_pack
+    from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
+
+    with open(testing.SERVICE_PATH) as f:
+        frozen = {t["name"]: t for t in json.load(f)["tenants"]}
+    names = [name for name, _, _ in testing.SERVICE_TENANTS]
+    n = len(names)
+    spec0 = CONFIGS[testing.SERVICE_TENANTS[0][1]]
+    # one resync-class ingest slot for each tenant's first full pack, so
+    # the fleet's first contact is not shed; a 0.5 s batch window
+    server_cfg = testing.service_config(ReschedulerConfig, spec0,
+                                        service_resync_ingest_cap=n)
+    t0 = time.perf_counter()
+    server = ServiceServer(server_cfg, "127.0.0.1:0", batch_window_s=0.5,
+                           device="cuda")
+    ready_s = time.perf_counter() - t0
+    server.start_background()
+    url = f"http://{server.address}"
+    fallback0 = metrics.service_snapshot()["remote_planner_fallback"]
+    pools = []
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        check("B1t/B2t" in health["batch_program"]
+              and health["solve_device"].startswith("cuda"),
+              f"/healthz names {health['batch_program']} on "
+              f"{health['solve_device']}")
+
+        # ---- the fleet: one fake cluster and one agent a tenant -------
+        tenants = []
+        t0 = time.perf_counter()
+        for name, config_id, seed in testing.SERVICE_TENANTS:
+            spec = CONFIGS[config_id]
+            cfg = testing.service_config(ReschedulerConfig, spec,
+                                         planner_url=url,
+                                         planner_timeout=300.0)
+            client = generate_cluster(spec, seed, reschedule_evicted=True)
+            check(testing.cluster_digest(client) == frozen[name]["digest"],
+                  f"{name}: generated cluster digest != frozen")
+            agent = RemotePlanner(cfg, tenant=name)
+            packed = testing.agent_pack(agent, client)
+            check(pack_fingerprint(packed) == frozen[name]["pack_fingerprint"],
+                  f"{name}: the agent's pack != the JAX agent's")
+            tenants.append((name, cfg, client, agent, packed))
+        gen_s = time.perf_counter() - t0
+        bucket = buckets.bucket_for(tenants[0][4])
+        check(all(buckets.bucket_for(t[4]) == bucket for t in tenants),
+              "the fleet's packs fall into more than one bucket")
+
+        def together(fn):
+            """fn(i) for every tenant at once (a barrier releases all)."""
+            out = [None] * n
+            errors = []
+            gate = threading.Barrier(n, action=lambda: released.append(
+                time.perf_counter()))
+
+            def run(i):
+                try:
+                    gate.wait(timeout=60)
+                    out[i] = fn(i)
+                except Exception as err:  # noqa: BLE001 — reported below
+                    errors.append(err)
+
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            check(not errors and all(not t.is_alive() for t in threads),
+                  f"fleet call failed: {errors}")
+            return out
+
+        # one connection a tenant, as each agent keeps its own: a shared
+        # keep-alive connection would serialise the requests
+        pools = [PooledWireTransport() for _ in range(n)]
+        released = []  # host clock of each release of the fleet
+        headers = {"Content-Type": "application/octet-stream",
+                   "X-Planner-Deadline": "300"}
+
+        def ask(i, horizon=0):
+            name, _, _, _, packed = tenants[i]
+            t_req = time.perf_counter()
+            body = wire.encode_plan_request(name, packed,
+                                            schedule_horizon=horizon)
+            raw = pools[i](f"{url}/v2/plan", body, headers, 300.0)
+            reply = (wire.decode_plan_schedule_reply(raw) if horizon
+                     else wire.decode_plan_reply(raw))
+            return reply, (time.perf_counter() - t_req) * 1e3
+
+        fk.reset_launch_counts()
+        log0 = len(server.service.batch_log)
+        # ---- every tenant's selection, released together ---------------
+        sel = together(ask)
+        for (name, *_), (reply, _) in zip(tenants, sel):
+            got = [reply.index, int(reply.found), reply.n_feasible,
+                   *np.asarray(reply.row).tolist()]
+            check(got == frozen[name]["row"],
+                  f"{name}: selection {got[:3]} != the JAX package's "
+                  f"{frozen[name]['row'][:3]}")
+        # ---- the schedule batch at the frozen horizon ------------------
+        horizon = testing.SERVICE_HORIZON
+        sched = together(lambda i: ask(i, horizon))
+        for (name, *_), (reply, _) in zip(tenants, sched):
+            check(np.array_equal(np.asarray(reply.steps),
+                                 np.asarray(frozen[name]["schedule"])),
+                  f"{name}: {horizon}-step schedule != the JAX package's")
+        # ---- controller ticks of every agent through the service -------
+        ruled = [Rescheduler(client, agent, cfg, clock=client.clock,
+                             recorder=client)
+                 for _, cfg, client, agent, _ in tenants]
+        records = [[] for _ in range(n)]
+        tick_ms = []
+        for _ in range(testing.SERVICE_TICKS):
+            t0 = time.perf_counter()
+            recs = together(lambda i: testing.tick_once(ruled[i],
+                                                        tenants[i][2]))
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            for i, rec in enumerate(recs):
+                records[i].append(rec)
+        for (name, *_), recs in zip(tenants, records):
+            check_records(name, recs, frozen[name])
+        launches = dict(fk.LAUNCHES)
+        batches = list(server.service.batch_log)[log0:]
+        snap = metrics.service_snapshot()
+        check(snap["remote_planner_fallback"] == fallback0,
+              "an agent fell back to its local planner")
+        check(snap["device_sick"] == 0
+              and server.service.healthz_snapshot()["device"] != "sick",
+              "the service marked the device sick")
+        check(server.service.fatal is None, "the service ended")
+    finally:
+        for pool in pools:
+            pool.close()
+        server.close()
+
+    single = [b for b in batches if b["horizon"] == 0]
+    check(single and all(b["path"] == "device" for b in batches),
+          "a batch was served off the card")
+    for b in single:
+        check(b["launches"].get("B1t") == 1 and b["launches"].get("B2t") == 1,
+              f"a single-plan batch of {len(b['tenants'])} tenants launched "
+              f"{b['launches']}, not one B1t and one B2t")
+    widest = max(len(b["tenants"]) for b in single)
+    check(widest >= 4, f"no batch carried 4 tenants (widest {widest})")
+    check(launches["B1t"] == len(single) and launches["B2t"] == len(single),
+          f"B1t/B2t launches {launches} != {len(single)} single-plan batches")
+    log(f"[8] planner service on {health['solve_device']} "
+        f"({health['batch_program']}), kernels built and loaded before it "
+        f"listened ({ready_s:.2f} s); fleet of {n} tenants "
+        f"({', '.join(names)}) generated in {gen_s:.1f} s, digests and "
+        f"agent pack fingerprints == frozen, one bucket {bucket.key}")
+    log(f"[8] every selection == the JAX service's; every {horizon}-step "
+        f"schedule == the JAX service's; {testing.SERVICE_TICKS} controller "
+        f"ticks a tenant through the service: every drain, evicted pod "
+        f"UIDs and skip == the JAX package's agents' "
+        f"({sum(len(r['evicted']) for rs in records for r in rs)} pods "
+        f"evicted); remote_planner_fallback=0, service_device_sick=0; "
+        f"{len(single)} single-plan batches (widest {widest} tenants), each "
+        f"one B1t + one B2t launch; launches {launches}")
+    for i, b in enumerate(batches):
+        waits = b["queue_wait_ms"]
+        since = (b["popped"] - max(t for t in released if t <= b["popped"])) * 1e3
+        log(f"[8] batch {i + 1}: {len(b['tenants'])} tenants, horizon "
+            f"{b['horizon']}, cut {since:.1f} ms after the fleet's "
+            f"release from {b['queued']} waiting (cap {b['cap']}), queue wait {min(waits):.1f}-{max(waits):.1f} "
+            f"ms, assemble {b['assemble_ms']:.2f} (of it delta scatter "
+            f"{b['scatter_ms']:.2f}), upload {b['upload_ms']:.2f}, solve "
+            f"{b['solve_ms']:.2f}, fetch {b['fetch_ms']:.3f}, reply "
+            f"{b['reply_ms']:.3f} ms; launches {b['launches']} on {kind} "
+            f"[{card}]")
+    log(f"[8] per-tenant plan latency through the service (encode, POST, "
+        f"queue, batch, decode; host clock): selections "
+        f"{', '.join(f'{ms:.1f}' for _, ms in sel)} ms; schedules "
+        f"{', '.join(f'{ms:.1f}' for _, ms in sched)} ms; controller ticks "
+        f"of all {n} agents together {', '.join(f'{ms:.1f}' for ms in tick_ms)}"
+        f" ms on {kind} [{card}]")
+
+    # ---- the same plans solo, one TorchSolverPlanner, in this call -----
+    packs = [t[4] for t in tenants]
+    for staged in (256, 0):
+        planner = TorchSolverPlanner(
+            testing.service_config(ReschedulerConfig, spec0,
+                                   staged_chunk_lanes=staged),
+            device="cuda")
+        saved = dict(fk.LAUNCHES)
+        solo_ms = []
+        for (name, *_), packed in zip(tenants, packs):
+            t0 = time.perf_counter()
+            got = planner.plan_packed(packed)
+            solo_ms.append((time.perf_counter() - t0) * 1e3)
+            want = frozen[name]["row"]
+            check(got.found == bool(want[1]) and got.index == want[0]
+                  and np.array_equal(got.row, want[3:]),
+                  f"{name}: solo plan != the service's selection")
+        fk.LAUNCHES.update(saved)
+        log(f"[8] the same {n} plans solo by one TorchSolverPlanner "
+            f"({'staged, early exit' if staged else 'unstaged'}): "
+            f"{', '.join(f'{ms:.2f}' for ms in solo_ms)} ms (sum "
+            f"{sum(solo_ms):.1f}); selections == the service's, on {kind} "
+            f"[{card}]")
+
+    # ---- B1t/B2t against plain and solo launches -----------------------
+    host = stack_host(np, [buckets.pad_to_bucket(p, bucket) for p in packs])
+    dev = to_device(host, "cuda")
+    err = tenant_check(np, torch, fk, dev, "the batch's stack")
+    pad = stack_host(np, [*(tenant_slice(host, t) for t in range(n)),
+                          PackedCluster(*(np.zeros_like(f[0]) for f in host))])
+    tenant_check(np, torch, fk, to_device(pad, "cuda"),
+                 "the stack with a pad tenant")
+    past = stack_host(np, [past_smem_pack(seed) for seed in range(3)])
+    past_dev = to_device(past, "cuda")
+    check(not fk.card_geometry(past_dev, True, stacked=True).lanes_in_smem,
+          "the stacked past_smem_pack should carve its lanes from the "
+          "workspace")
+    tenant_check(np, torch, fk, past_dev, "past shared memory, T=3")
+    log(f"[8] B1t and B2t bit-identical to their plain version and to {n} "
+        f"solo B1/B2 launches (results and raw outputs) on the batch's "
+        f"stack ({bucket.key}), on it with an all-invalid pad tenant "
+        f"(T={n + 1}) and on past_smem_pack stacked T=3 (lanes in the "
+        f"device-memory workspace)")
+    saved = dict(fk.LAUNCHES)
+    rows = {}
+    raw_ff = fk.launch_tenants_raw(dev, False)[1].cpu().numpy()
+    for name, bf, replaces, what in (
+        ("B1t", False, "k8s_spot_rescheduler_tpu/ops/pallas_ffd.py:85",
+         "first-fit over the tenant axis"),
+        ("B2t", True, "k8s_spot_rescheduler_tpu/ops/pallas_ffd.py:156",
+         "best-fit over the tenant axis"),
+    ):
+        nbytes = ops = 0
+        for t in range(n):
+            b_, o_ = ffd_work(np, tenant_slice(host, t),
+                              None if bf else raw_ff[t], bf)
+            nbytes, ops = nbytes + b_, ops + o_
+        bound_ms, bound_by = work_bound(nbytes, ops)
+
+        def kern(bf=bf):
+            return fk.plan_ffd_tenants_kernel(dev, best_fit=bf)
+
+        ms = time_ms(torch, kern)
+        dev_ms = device_ms(torch, kern, FFD_KERNELS)
+        plain_ms = time_ms(torch, lambda bf=bf: fk.plan_ffd_tenants_plain(
+            dev, bf), reps=3, warmup=1)
+        g = fk.card_geometry(dev, bf, stacked=True)
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="k8s_spot_rescheduler_tpu_torch/ops/csrc/ffd.cu",
+            replaces=replaces, launches=launches[name], max_abs_err=err,
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None,
+            path="planner service batch (phase 8)",
+        )
+        log(f"[8] {name} ({what}, T={n}, {bucket.key}): {ms:.4f} ms a "
+            f"wrapper call (CUDA events), {fmt_ms(dev_ms)} ms on the device "
+            f"(profiler), {plain_ms:.4f} ms plain, bound {bound_ms:.6f} ms "
+            f"({bound_by}); {g.lanes_per_block} lanes x {g.warps_per_lane} "
+            f"warps a block, {fk.grid_blocks(dev, g, bf, stacked=True)} "
+            f"blocks a tenant x {n}; {launches[name]} launches on the "
+            f"service's path, on {kind} [{card}]")
+    fk.LAUNCHES.update(saved)
+    cli_phase(here, kind, card)
+    return launches, rows
+
+
+def cli_phase(here, kind, card):
+    """``--serve`` and an agent CLI with ``--planner-url`` on config 1:
+    the agent drains as the frozen JAX CLI run, with no tick on its
+    local fallback; SIGTERM drains the service to exit 0."""
+    import signal
+    import socket
+    import urllib.request
+
+    from k8s_spot_rescheduler_tpu_torch import testing
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    serve = subprocess.Popen(
+        [sys.executable, "-m", "k8s_spot_rescheduler_tpu_torch", "--serve",
+         f"127.0.0.1:{port}", "--no-metrics-server"],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True,
+    )
+    try:
+        while True:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                    health = json.loads(r.read())
+                break
+            except OSError:
+                check(serve.poll() is None and time.perf_counter() - t0 < 300,
+                      "--serve did not come up")
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        check("B1t/B2t" in health["batch_program"],
+              f"--serve /healthz names {health['batch_program']}")
+        t0 = time.perf_counter()
+        agent = subprocess.run(
+            [sys.executable, "-m", "k8s_spot_rescheduler_tpu_torch",
+             *testing.CLI_ARGS, "--planner-url", f"http://127.0.0.1:{port}",
+             "--planner-timeout", "120s"],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600,
+        )
+        agent_s = time.perf_counter() - t0
+    finally:
+        serve.send_signal(signal.SIGTERM)
+        try:
+            out, _ = serve.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            serve.kill()
+            out, _ = serve.communicate()
+    check(agent.returncode == 0,
+          f"agent CLI exited {agent.returncode}: {agent.stderr[-2000:]}")
+    drained = re.findall(r"tick \d+: drained=(\[.*?\])", agent.stderr)
+    want = [repr(rec["drained"]) for rec in testing.load_ticks()["cli"]["records"]]
+    check(drained == want, f"agent CLI drained {drained}, the JAX CLI {want}")
+    fallbacks = re.findall(r"remote_planner_fallback_total=(\d+)",
+                           agent.stderr)
+    check(fallbacks == ["0"], f"agent CLI remote_planner_fallback_total "
+                              f"{fallbacks}")
+    check(serve.returncode == 0,
+          f"--serve exited {serve.returncode} on SIGTERM: {out[-2000:]}")
+    log(f"[8] python -m k8s_spot_rescheduler_tpu_torch --serve: up in "
+        f"{up_s:.1f} s ({health['batch_program']}), exit 0 on SIGTERM; "
+        f"agent {' '.join(testing.CLI_ARGS)} --planner-url: exit 0 in "
+        f"{agent_s:.1f} s, drained {', '.join(drained)} == the JAX "
+        f"package's CLI run, remote_planner_fallback_total=0, on {kind} "
+        f"[{card}]")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1485,6 +1926,8 @@ def main() -> int:
     # B1/B2's row: the path whose launches it counts, timed on its pack
     timings.update(tick_timings)
     kube_launches = kube_phase(torch, fk, kind, card, here)
+    service_launches, service_rows = service_phase(np, torch, fk, kind, card,
+                                                   here)
 
     # the main path: the controller tick observing through the mirror,
     # fed by the fake cluster (phase 6) and by the watch (phase 7)
@@ -1510,6 +1953,11 @@ def main() -> int:
             "planning tick (phase 3)": main_launches[name],
             "streamed union": stream_launches[name],
         }
+        out.append(row)
+    for name in ("B1t", "B2t"):
+        row = dict(service_rows[name])
+        row["launches_by_path"] = {
+            "planner service batch (phase 8)": service_launches[name]}
         out.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

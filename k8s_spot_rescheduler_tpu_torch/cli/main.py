@@ -11,14 +11,25 @@ or a synthetic cluster (``--cluster synthetic:N[:seed]``) behind the
 same ClusterClient interface. ``--device`` (default ``cuda``) names
 where the planner runs.
 
+The multi-tenant planner service: ``--serve ADDR`` runs the service
+(``service/server.ServiceServer``) on ``--device`` instead of a control
+loop, its kernels built before it listens; it exits 1 when a fault of
+the card's kernels ended it. An agent with ``--planner-url`` (or an
+ordered ``--planner-urls`` list) plans through such a service with the
+port's ``RemotePlanner`` and reports ``remote_planner_fallback_total``
+when it ends. Their knobs: ``--planner-timeout``,
+``--delta-wire-enabled``, ``--device-sick-threshold`` and
+``--service-{drain-grace,state-dir,batch-window,queue-timeout,
+resync-ingest-cap,resync-ingest-budget}``.
+
 Not in the parser yet, so argparse refuses them, each with the later
-slice that brings it: ``--serve`` and the planner-service flags
-(``--planner-url(s)``, ``--planner-timeout``, ``--delta-wire-enabled``,
-``--service-*``, ``--device-sick-threshold``), the chaos profile
-(``--chaos-*``), the mesh and memory ladder (``--mesh-shape``,
-``--auto-shard``, ``--solver-hbm-budget``, ``--carry-chunks``),
-``--debug-endpoints``, ``--trace-dir`` and the JAX-only
-``--jax-cache-dir``.
+slice that brings it: the chaos profiles (``--chaos-*`` with
+``io/chaos`` and ``--service-chaos-*`` with ``service/chaos.py``: the
+bench's fault profiles, ROADMAP Queue 1 item 5), the mesh and memory
+ladder (``--mesh-shape``, ``--auto-shard``, ``--solver-hbm-budget``,
+``--carry-chunks``: multiple GPUs, item 7), ``--debug-endpoints`` and
+``--trace-dir`` (the helpers, item 8) and the JAX-only
+``--jax-cache-dir``, which goes.
 
 Run e.g.::
 
@@ -27,6 +38,11 @@ Run e.g.::
         --device cpu --no-metrics-server --node-drain-delay 1s
     python -m k8s_spot_rescheduler_tpu_torch --cluster kube:http://127.0.0.1:8080 \
         --ticks 2 --housekeeping-interval 2s --node-drain-delay 1s
+    python -m k8s_spot_rescheduler_tpu_torch --serve 127.0.0.1:8642 \
+        --device cpu --no-metrics-server
+    python -m k8s_spot_rescheduler_tpu_torch --cluster synthetic:1 --ticks 3 \
+        --planner-url http://127.0.0.1:8642 --no-metrics-server \
+        --node-drain-delay 1s
 """
 
 from __future__ import annotations
@@ -163,6 +179,68 @@ def build_parser() -> argparse.ArgumentParser:
                         "field-by-field against the watch mirror; drift "
                         "is counted and healed by a store replace (Go "
                         "duration; 0 disables)")
+    p.add_argument("--planner-url", default=d.planner_url,
+                   help="plan through a remote multi-tenant planner "
+                        "service at this base URL instead of the "
+                        "in-process solver: observe/pack/actuate stay "
+                        "local, packed tensors ship over the binary wire "
+                        "protocol (service/wire.py); when every endpoint "
+                        "fails the tick plans on the local numpy oracle "
+                        "(empty = plan in-process)")
+    p.add_argument("--planner-urls", default=d.planner_urls,
+                   help="ORDERED comma-separated planner-service "
+                        "endpoints: per-endpoint circuit breakers, "
+                        "failover down the list, local numpy-oracle "
+                        "fallback only when every endpoint is dead "
+                        "(takes precedence over --planner-url)")
+    p.add_argument("--planner-timeout", default=f"{d.planner_timeout:g}s",
+                   help="per-plan HTTP deadline of the agent's planner-"
+                        "service call (Go duration)")
+    p.add_argument("--delta-wire-enabled", type=_bool,
+                   default=d.delta_wire_enabled,
+                   help="ship each tick's churn delta to the planner "
+                        "service instead of the full pack (wire v4); any "
+                        "disagreement costs one full-pack resync (false "
+                        "= full packs every tick)")
+    p.add_argument("--device-sick-threshold", type=int,
+                   default=d.device_sick_threshold,
+                   help="--serve mode: consecutive slower-than-baseline "
+                        "batched solves before the device-health "
+                        "watchdog serves from the numpy-oracle host path "
+                        "(0 = watchdog off); a fault of the card's "
+                        "kernels ends the service instead")
+    p.add_argument("--service-drain-grace",
+                   default=f"{d.service_drain_grace:g}s",
+                   help="--serve mode: seconds SIGTERM lets queued "
+                        "batches finish before the rest are evicted "
+                        "with 503 (Go duration)")
+    p.add_argument("--service-state-dir", default=d.service_state_dir,
+                   help="--serve mode: persist per-tenant pack "
+                        "fingerprints + the bucket warmup list here "
+                        "(warm restart; empty = cold restarts)")
+    p.add_argument("--service-batch-window",
+                   default=f"{d.service_batch_window:g}s",
+                   help="--serve mode: how long the batching scheduler "
+                        "waits to coalesce concurrent tenants into one "
+                        "batched solve (Go duration; 0 = at once)")
+    p.add_argument("--service-queue-timeout",
+                   default=f"{d.service_queue_timeout:g}s",
+                   help="--serve mode: a plan request unbatched past "
+                        "this is evicted with 503 + Retry-After from the "
+                        "measured batch cadence (Go duration)")
+    p.add_argument("--service-resync-ingest-cap", type=int,
+                   default=d.service_resync_ingest_cap,
+                   help="--serve mode: max concurrent full-pack resync "
+                        "ingests; excess refused with a typed 503")
+    p.add_argument("--service-resync-ingest-budget", type=int,
+                   default=d.service_resync_ingest_budget,
+                   help="--serve mode: byte budget of the resync ingest "
+                        "ledger (0 = the device memory budget)")
+    p.add_argument("--serve", default="",
+                   help="run as the multi-tenant planner SERVICE on this "
+                        "address (e.g. 0.0.0.0:8642) on --device instead "
+                        "of a control loop: /v2/plan (binary wire), "
+                        "/v1/plan (JSON), /healthz")
     p.add_argument("--trace-enabled", type=_bool, default=d.trace_enabled,
                    help="per-tick span-tree tracing (utils/tracing.py); "
                         "false = phase histograms only")
@@ -265,6 +343,17 @@ def config_from_args(args) -> ReschedulerConfig:
         watch_progress_deadline=parse_duration(args.watch_progress_deadline),
         mirror_staleness_budget=parse_duration(args.mirror_staleness_budget),
         resync_interval=parse_duration(args.resync_interval),
+        planner_url=args.planner_url,
+        planner_urls=args.planner_urls,
+        planner_timeout=parse_duration(args.planner_timeout),
+        delta_wire_enabled=args.delta_wire_enabled,
+        device_sick_threshold=args.device_sick_threshold,
+        service_drain_grace=parse_duration(args.service_drain_grace),
+        service_state_dir=args.service_state_dir,
+        service_batch_window=parse_duration(args.service_batch_window),
+        service_queue_timeout=parse_duration(args.service_queue_timeout),
+        service_resync_ingest_cap=args.service_resync_ingest_cap,
+        service_resync_ingest_budget=args.service_resync_ingest_budget,
         trace_enabled=args.trace_enabled,
         flight_ring_size=args.flight_ring_size,
         flight_dump_dir=args.flight_dump_dir,
@@ -284,6 +373,9 @@ def main(argv=None) -> int:
     except (LabelFormatError, ValueError) as err:
         print(f"Error: {err}", file=sys.stderr)
         return 1
+
+    if args.serve:
+        return serve(config, args)
 
     log.info("Running Rescheduler")
     if not args.no_metrics_server:
@@ -361,7 +453,16 @@ def main(argv=None) -> int:
         return 1
 
     try:
-        planner = TorchSolverPlanner(config, device=args.device)
+        if config.planner_url or config.planner_urls:
+            # agent mode: the solve crosses the wire to a planner
+            # service (failover list supported); the rest stays local
+            from k8s_spot_rescheduler_tpu_torch.service.agent import (
+                RemotePlanner,
+            )
+
+            planner = RemotePlanner(config)
+        else:
+            planner = TorchSolverPlanner(config, device=args.device)
     except (RuntimeError, ValueError) as err:
         print(f"Error: {err}", file=sys.stderr)
         return 1
@@ -412,6 +513,43 @@ def main(argv=None) -> int:
         "planner_fallback_total=%d",
         int(metrics.robustness_snapshot()["planner_fallback"]),
     )
+    if config.planner_url or config.planner_urls:
+        # agent ticks that planned locally because no endpoint answered
+        log.info(
+            "remote_planner_fallback_total=%d",
+            int(metrics.service_snapshot()["remote_planner_fallback"]),
+        )
+    return 0
+
+
+def serve(config: ReschedulerConfig, args) -> int:
+    """``--serve``: the multi-tenant planner service on ``--device``, no
+    control loop and no cluster client. SIGTERM drains gracefully
+    (exit 0); a fault of the card's kernels ends it with exit 1."""
+    from k8s_spot_rescheduler_tpu_torch.service.server import (
+        ServiceFault,
+        ServiceServer,
+        install_sigterm_drain,
+    )
+
+    if not args.no_metrics_server:
+        from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
+
+        metrics.serve(config.listen_address)
+    log.info("Running planner service")
+    try:
+        server = ServiceServer(config, args.serve, device=args.device)
+    except (RuntimeError, ValueError, OSError) as err:
+        print(f"Error: {err}", file=sys.stderr)
+        return 1
+    # SIGTERM = graceful drain: stop admitting, finish queued batches
+    # within service_drain_grace, persist warm state, exit
+    install_sigterm_drain(server)
+    try:
+        server.serve_forever()
+    except ServiceFault as err:
+        print(f"Error: the planner service ended: {err}", file=sys.stderr)
+        return 1
     return 0
 
 

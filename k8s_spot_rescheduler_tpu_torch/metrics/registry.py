@@ -5,7 +5,10 @@ controller, the actuator, the planner and ``loop/health`` call it: the
 reference's four series under namespace ``spot_rescheduler`` (reference
 metrics/metrics.go:28-64), name for name and label for label, plus the
 planner, robustness and freshness series the port's controller updates,
-and the kube client's and the watch mirror's (``io/kube``, ``io/watch``).
+the kube client's and the watch mirror's (``io/kube``, ``io/watch``), and
+the planner service's and its agents' (``service_*``, ``remote_*``:
+``service/server.py``, ``service/agent.py``) with their windowed
+queue-wait snapshots.
 
 The values live in a small store of counters, gauges and histograms in
 this module, so nothing here needs ``prometheus_client``. ``serve``
@@ -16,7 +19,9 @@ package it raises.
 
 from __future__ import annotations
 
+import math
 import threading
+from collections import OrderedDict, deque
 from typing import Dict, Sequence, Tuple
 
 NAMESPACE = "spot_rescheduler"
@@ -279,6 +284,124 @@ observe_delta_events = _gauge(
 )
 
 
+# --- the multi-tenant planner service and its agents ---
+
+service_requests = _counter(
+    "service_requests",
+    "Plan requests the planner service accepted or refused, by outcome: "
+    "ok (planned in a batch), rejected (depth/body caps before the body "
+    "was read), expired (waited past the queue timeout and was evicted "
+    "with 503 + Retry-After), error (decode or solve failure).",
+    ["outcome"],
+)
+service_batch_lanes = _gauge(
+    "service_batch_lanes",
+    "Candidate lanes in the last batched solve, summed across the tenant "
+    "lane-blocks that shared it.",
+)
+service_batch_tenants = _gauge(
+    "service_batch_tenants",
+    "Tenant lane-blocks sharing the last batched solve.",
+)
+service_queue_wait_ms = _histogram(
+    "service_queue_wait_ms",
+    "Milliseconds a plan request spent in the tenant queue before its "
+    "batch dispatched.",
+    [],
+    (1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 5000.0,
+     30000.0),
+)
+service_tenant_evictions = _counter(
+    "service_tenant_evictions",
+    "Plan requests evicted from the service queue after waiting past the "
+    "queue timeout, per tenant.",
+    ["tenant"],
+)
+remote_planner_fallback = _counter(
+    "remote_planner_fallback",
+    "Agent ticks planned by the local numpy-oracle fallback because every "
+    "configured planner endpoint was unusable.",
+)
+remote_planner_failover = _counter(
+    "remote_planner_failover",
+    "Agent ticks served by a planner endpoint after an earlier endpoint "
+    "in the ordered list failed or was breaker-open.",
+)
+remote_wire_connection_reuse = _counter(
+    "remote_wire_connection_reuse",
+    "Agent plan requests served over an already-established pooled "
+    "keep-alive connection.",
+)
+remote_wire_reconnects = _counter(
+    "remote_wire_reconnects",
+    "Pooled keep-alive sockets found stale and replaced by one retry on a "
+    "fresh connection.",
+)
+service_delta_requests = _counter(
+    "service_delta_requests",
+    "Delta-shipping plan requests by outcome: applied, or resync (the "
+    "service demanded one full pack).",
+    ["outcome"],
+)
+service_wire_ingest_bytes = _counter(
+    "service_wire_ingest_bytes",
+    "Request-body bytes the planner service ingested on /v2/plan.",
+)
+service_tenant_cache = _gauge(
+    "service_tenant_cache_entries",
+    "Tenants with packed state cached for the delta wire.",
+)
+service_admission_shed = _counter(
+    "service_admission_shed",
+    "Plan requests the planner service shed, by the admission edge that "
+    "refused them: max-inflight, queue-timeout, deadline, drain-refuse, "
+    "drain-evict, resync-storm.",
+    ["reason"],
+)
+service_resync_ingest_admitted = _counter(
+    "service_resync_ingest_admitted",
+    "Full-pack resync ingests admitted through the bounded resync "
+    "admission class.",
+)
+service_resync_ingest_inflight = _gauge(
+    "service_resync_ingest_inflight",
+    "Full-pack resync ingests currently holding an admission token.",
+)
+service_resync_ingest_ledger = _gauge(
+    "service_resync_ingest_ledger_bytes",
+    "Estimated device bytes committed by in-flight resync ingests.",
+)
+service_bucket_compile_hits = _counter(
+    "service_bucket_compile_hits",
+    "Batched solves whose stacked shape family this process had already "
+    "solved.",
+)
+service_bucket_compile_misses = _counter(
+    "service_bucket_compile_misses",
+    "Batched solves that were the first of their stacked shape family in "
+    "this process.",
+)
+service_batch_occupancy = _gauge(
+    "service_batch_occupancy",
+    "Tenant lane-blocks in the last batched solve as a fraction of the "
+    "batch cap for its bucket.",
+)
+service_queue_wait_p50 = _gauge(
+    "service_queue_wait_p50_ms",
+    "Median queue wait over the recent window (all tenants pooled).",
+)
+service_queue_wait_p99 = _gauge(
+    "service_queue_wait_p99_ms",
+    "p99 queue wait over the recent window (all tenants pooled).",
+)
+service_device_sick = _gauge(
+    "service_device_sick",
+    "1 while the planner service's device-health watchdog holds the "
+    "accelerator sick and batches are served by the numpy-oracle host "
+    "path.",
+)
+
+
 def update_nodes_map(on_demand_label: str, spot_label: str, n_on_demand: int, n_spot: int) -> None:
     """reference metrics/metrics.go:73-80 (labels carry the configured
     node-class label strings, as in the reference)."""
@@ -434,6 +557,215 @@ def robustness_snapshot() -> dict:
         "degraded": rescheduler_degraded.value(),
     }
 
+
+
+# run maxima of the batch gauges and of concurrent resync ingests
+_service_batch_max = {"lanes": 0, "tenants": 0}
+_resync_ingest_max = {"inflight": 0}
+
+# windowed queue waits: a bounded ring per tenant (LRU past the tenant
+# cap; tenant ids are client-supplied) and one pooled ring
+WAIT_WINDOW = 128
+WAIT_TENANTS_MAX = 4096
+_tenant_waits: "OrderedDict[str, deque]" = OrderedDict()
+_window_waits: deque = deque(maxlen=4096)
+_tenant_served: "OrderedDict[str, int]" = OrderedDict()
+
+
+def _percentile(values, q: float) -> float:
+    """Nearest-rank percentile (0 when empty)."""
+    if not values:
+        return 0.0
+    ranked = sorted(values)
+    idx = min(len(ranked) - 1, max(0, int(math.ceil(q * len(ranked))) - 1))
+    return float(ranked[idx])
+
+
+def jain_fairness(shares) -> float:
+    """Jain's fairness index over per-tenant shares (1.0 when empty)."""
+    vals = [float(v) for v in shares]
+    total = sum(vals)
+    if not vals or total <= 0:
+        return 1.0
+    return (total * total) / (len(vals) * sum(v * v for v in vals))
+
+
+def _note_tenant_wait(tenant: str, wait_ms: float) -> None:
+    with _LOCK:
+        ring = _tenant_waits.get(tenant)
+        if ring is None:
+            ring = _tenant_waits[tenant] = deque(maxlen=WAIT_WINDOW)
+        ring.append(wait_ms)
+        _tenant_waits.move_to_end(tenant)
+        _tenant_served[tenant] = _tenant_served.get(tenant, 0) + 1
+        _tenant_served.move_to_end(tenant)
+        while len(_tenant_waits) > WAIT_TENANTS_MAX:
+            _tenant_waits.popitem(last=False)
+        while len(_tenant_served) > WAIT_TENANTS_MAX:
+            _tenant_served.popitem(last=False)
+        _window_waits.append(wait_ms)
+
+
+def update_service_request(outcome: str) -> None:
+    service_requests.labels(outcome).inc()
+
+
+def update_service_admission_shed(reason: str) -> None:
+    """One request shed at an admission edge (the caller fires the
+    flight shed event with the same reason from the same site)."""
+    service_admission_shed.labels(reason).inc()
+
+
+def update_service_bucket_compile(first: bool) -> None:
+    if first:
+        service_bucket_compile_misses.inc()
+    else:
+        service_bucket_compile_hits.inc()
+
+
+def update_service_batch(lanes: int, tenants: int, waits,
+                         occupancy=None) -> None:
+    """One batched solve dispatched: the batch gauges, each member's
+    queue wait (``waits``: (tenant, wait_ms) pairs) and the windowed
+    percentile gauges."""
+    service_batch_lanes.set(int(lanes))
+    service_batch_tenants.set(int(tenants))
+    _service_batch_max["lanes"] = max(_service_batch_max["lanes"], int(lanes))
+    _service_batch_max["tenants"] = max(
+        _service_batch_max["tenants"], int(tenants)
+    )
+    if occupancy is not None:
+        service_batch_occupancy.set(float(occupancy))
+    for tenant, w in waits:
+        service_queue_wait_ms.labels().observe(float(w))
+        _note_tenant_wait(str(tenant), float(w))
+    with _LOCK:
+        window = list(_window_waits)
+    service_queue_wait_p50.set(_percentile(window, 0.50))
+    service_queue_wait_p99.set(_percentile(window, 0.99))
+
+
+def service_tenant_wait_snapshot(top: int = 0) -> dict:
+    """Windowed per-tenant queue-wait percentiles ``{tenant: {p50_ms,
+    p99_ms, n}}``; ``top`` > 0 keeps the worst ``top`` tenants by p99."""
+    with _LOCK:
+        rings = [(t, list(r)) for t, r in _tenant_waits.items()]
+    out = {
+        tenant: {
+            "p50_ms": round(_percentile(vals, 0.50), 3),
+            "p99_ms": round(_percentile(vals, 0.99), 3),
+            "n": len(vals),
+        }
+        for tenant, vals in rings
+    }
+    if top and len(out) > top:
+        out = dict(sorted(out.items(), key=lambda kv: kv[1]["p99_ms"],
+                          reverse=True)[:top])
+    return out
+
+
+def service_queue_wait_summary(top: int = 16) -> dict:
+    """The pooled windowed percentiles plus the worst tenants' (the
+    block /healthz embeds)."""
+    with _LOCK:
+        vals = list(_window_waits)
+    return {
+        "p50_ms": round(_percentile(vals, 0.50), 3),
+        "p99_ms": round(_percentile(vals, 0.99), 3),
+        "n": len(vals),
+        "tenants": service_tenant_wait_snapshot(top=top),
+    }
+
+
+def update_service_tenant_eviction(tenant: str) -> None:
+    service_tenant_evictions.labels(tenant).inc()
+
+
+def update_remote_planner_fallback() -> None:
+    remote_planner_fallback.inc()
+
+
+def update_remote_planner_failover() -> None:
+    remote_planner_failover.inc()
+
+
+def update_remote_wire_reuse() -> None:
+    remote_wire_connection_reuse.inc()
+
+
+def update_remote_wire_reconnect() -> None:
+    remote_wire_reconnects.inc()
+
+
+def update_service_device_sick(sick: bool) -> None:
+    service_device_sick.set(1 if sick else 0)
+
+
+def update_service_delta(outcome: str) -> None:
+    service_delta_requests.labels(outcome).inc()
+
+
+def update_service_wire_ingest(nbytes: int) -> None:
+    service_wire_ingest_bytes.inc(max(0, int(nbytes)))
+
+
+def update_service_tenant_cache(entries: int) -> None:
+    service_tenant_cache.set(int(entries))
+
+
+def update_service_resync_ingest(inflight: int, ledger_bytes: int,
+                                 admitted: bool = False) -> None:
+    """Resync-ingest admission occupancy changed (``admitted``: one more
+    ingest was let in)."""
+    if admitted:
+        service_resync_ingest_admitted.inc()
+    service_resync_ingest_inflight.set(int(inflight))
+    service_resync_ingest_ledger.set(max(0, int(ledger_bytes)))
+    _resync_ingest_max["inflight"] = max(
+        _resync_ingest_max["inflight"], int(inflight)
+    )
+
+
+def _by_label(metric) -> dict:
+    with _LOCK:
+        return {key[0]: float(v) for key, v in metric.values.items()}
+
+
+def service_snapshot() -> dict:
+    """The service's and the agents' counters and gauges (tests and the
+    chip smoke diff before/after), with the run's batch high-water marks
+    and the windowed queue waits."""
+    with _LOCK:
+        window = list(_window_waits)
+        served = list(_tenant_served.values())
+    return {
+        "requests": _by_label(service_requests),
+        "batch_lanes": service_batch_lanes.value(),
+        "batch_tenants": service_batch_tenants.value(),
+        "batch_lanes_max": _service_batch_max["lanes"],
+        "batch_tenants_max": _service_batch_max["tenants"],
+        "batch_occupancy": service_batch_occupancy.value(),
+        "tenant_evictions": sum(_by_label(service_tenant_evictions).values()),
+        "remote_planner_fallback": remote_planner_fallback.value(),
+        "remote_planner_failover": remote_planner_failover.value(),
+        "wire_connection_reuse": remote_wire_connection_reuse.value(),
+        "wire_reconnects": remote_wire_reconnects.value(),
+        "device_sick": service_device_sick.value(),
+        "delta_requests": _by_label(service_delta_requests),
+        "wire_ingest_bytes": service_wire_ingest_bytes.value(),
+        "tenant_cache_entries": service_tenant_cache.value(),
+        "admission_shed": _by_label(service_admission_shed),
+        "resync_ingest_admitted": service_resync_ingest_admitted.value(),
+        "resync_ingest_inflight": service_resync_ingest_inflight.value(),
+        "resync_ingest_inflight_max": _resync_ingest_max["inflight"],
+        "resync_ingest_ledger_bytes": service_resync_ingest_ledger.value(),
+        "compile_hits": service_bucket_compile_hits.value(),
+        "compile_misses": service_bucket_compile_misses.value(),
+        "queue_wait_p50_ms": round(_percentile(window, 0.50), 3),
+        "queue_wait_p99_ms": round(_percentile(window, 0.99), 3),
+        "tenant_queue_wait": service_tenant_wait_snapshot(),
+        "jain_served": round(jain_fairness(served), 4),
+    }
 
 
 def _families():

@@ -31,7 +31,8 @@ The LIST-seeding bulk path of the JAX package (``bulk_add_pods`` over a
 native ``PodBatch``) waits for the port of the native LIST decoder: every
 pod enters through ``add_pod``. The churn delta between two packs
 (``PackedDelta``, ``emit_packed_delta``, ``pad_pow2``,
-``pad_packed_delta``) lives in ``models/delta.py`` and is re-exported
+``pad_packed_delta``, ``empty_packed_delta``) and the delta wire's
+``pack_fingerprint`` live in ``models/delta.py`` and are re-exported
 here.
 
 Known model simplifications (safe direction): a pod's phase, requests,
@@ -59,8 +60,11 @@ from k8s_spot_rescheduler_tpu_torch.models.cluster import (
 from k8s_spot_rescheduler_tpu_torch.models.delta import (  # noqa: unused-import — re-exported
     PackedDelta,
     emit_packed_delta,
+    empty_packed_delta,
+    pack_fingerprint,
     pad_packed_delta,
     pad_pow2,
+    update_tensor_digest,
 )
 from k8s_spot_rescheduler_tpu_torch.models.evictability import BlockingPod
 from k8s_spot_rescheduler_tpu_torch.models.tensors import (

@@ -197,6 +197,12 @@ def load_npz(path: str):
     return packed, extra
 
 
+def tenant_slice(stacked, t: int) -> PackedCluster:
+    """Tenant ``t`` of T problems stacked along a leading axis (numpy or
+    torch; a view, not a copy)."""
+    return PackedCluster(*(f[t] for f in stacked))
+
+
 def shapes(packed):
     """(C, K, S, R, W, A) of a PackedCluster in either form."""
     C, K, R = packed.slot_req.shape

@@ -1,5 +1,7 @@
 // Kernels B1 (first-fit), B2 (best-fit) and B3 (first-fit over spot
-// chunks): the batched greedy drain solve for Hopper (sm_90a).
+// chunks): the batched greedy drain solve for Hopper (sm_90a); B1t and
+// B2t are B1 and B2 launched over T stacked problems of one shape, the
+// planner service's batch (gridDim.y = T, greedy.cuh point 8).
 //
 // Replaces the Pallas TPU kernel k8s_spot_rescheduler_tpu/ops/pallas_ffd.py
 // `_kernel` (best_fit=False / True), entered there through
@@ -46,21 +48,29 @@
 namespace {
 
 constexpr int kVariants = 5;  // first-fit, then best-fit with P = 1, 2, 4, 8
+constexpr int kMaxTenants = 65535;  // gridDim.y
 
 using FfdKernel = decltype(&greedy_kernel<false, 1, true, true, AbsOverlay>);
 
-// kKernels[fixed][statics in shared memory][variant]: first-fit (B1,
-// B3), then B2 at P = 1, 2, 4, 8
-#define FFD(BF, P, SMEM, FIXED) greedy_kernel<BF, P, SMEM, FIXED, AbsOverlay>
-#define FFD_VARIANTS(SMEM, FIXED)                                  \
-  {                                                                \
-    FFD(false, 1, SMEM, FIXED), FFD(true, 1, SMEM, FIXED),         \
-        FFD(true, 2, SMEM, FIXED), FFD(true, 4, SMEM, FIXED),      \
-        FFD(true, 8, SMEM, FIXED)                                  \
+// kKernels[tenants][fixed][statics in shared memory][variant]: first-fit
+// (B1, B3), then B2 at P = 1, 2, 4, 8; tenants 1 for the instances that
+// solve blockIdx.y's problem (B1t/B2t with T > 1)
+#define FFD(BF, P, SMEM, FIXED, TN) \
+  greedy_kernel<BF, P, SMEM, FIXED, AbsOverlay, TN>
+#define FFD_VARIANTS(SMEM, FIXED, TN)                                   \
+  {                                                                     \
+    FFD(false, 1, SMEM, FIXED, TN), FFD(true, 1, SMEM, FIXED, TN),      \
+        FFD(true, 2, SMEM, FIXED, TN), FFD(true, 4, SMEM, FIXED, TN),   \
+        FFD(true, 8, SMEM, FIXED, TN)                                   \
   }
-const FfdKernel kKernels[2][2][kVariants] = {
-    {FFD_VARIANTS(false, false), FFD_VARIANTS(true, false)},
-    {FFD_VARIANTS(false, true), FFD_VARIANTS(true, true)}};
+#define FFD_SHAPES(TN)                                                  \
+  {                                                                     \
+    {FFD_VARIANTS(false, false, TN), FFD_VARIANTS(true, false, TN)},    \
+        {FFD_VARIANTS(false, true, TN), FFD_VARIANTS(true, true, TN)}   \
+  }
+const FfdKernel kKernels[2][2][2][kVariants] = {FFD_SHAPES(false),
+                                                FFD_SHAPES(true)};
+#undef FFD_SHAPES
 #undef FFD_VARIANTS
 #undef FFD
 
@@ -83,7 +93,7 @@ int fixed_shape(int R, int W, int A, int lanes_in_ws) {
 }
 
 std::mutex g_mutex;
-InstanceState g_state[2][2][kVariants][kMaxDevices];
+InstanceState g_state[2][2][2][kVariants][kMaxDevices];
 
 }  // namespace
 
@@ -92,50 +102,59 @@ extern "C" {
 // Largest dynamic shared memory a block of every instance may use on
 // `device`, or -1 on error.
 int ffd_max_dynamic_smem(int device) {
-  const void* fns[2 * 2 * kVariants];
+  const void* fns[2 * 2 * 2 * kVariants];
   int n = 0;
-  for (int f = 0; f < 2; ++f)
-    for (int m = 0; m < 2; ++m)
-      for (int v = 0; v < kVariants; ++v)
-        fns[n++] = reinterpret_cast<const void*>(kKernels[f][m][v]);
+  for (int t = 0; t < 2; ++t)
+    for (int f = 0; f < 2; ++f)
+      for (int m = 0; m < 2; ++m)
+        for (int v = 0; v < kVariants; ++v)
+          fns[n++] = reinterpret_cast<const void*>(kKernels[t][f][m][v]);
   return max_dynamic_smem(device, fns, n);
 }
 
-// Blocks of the persistent grid for C lanes in a geometry (`lanes_in_ws`
-// 1 when the lanes live in the device-memory workspace): as many as are
-// resident at once on the current device, at most one per L lanes; a
-// negative cudaError_t on error.
+// Blocks of the persistent grid of each of `tenants` stacked problems of
+// C lanes in a geometry (`lanes_in_ws` 1 when the lanes live in the
+// device-memory workspace): the blocks resident at once on the current
+// device, split over the tenants, at least one and at most one per L
+// lanes; a negative cudaError_t on error.
 int ffd_blocks(int C, int R, int W, int A, int best_fit, int lanes_per_block,
                int warps_per_lane, int statics_in_smem, int smem_bytes,
-               int lanes_in_ws) {
+               int lanes_in_ws, int tenants) {
   const int L = lanes_per_block;
   const int P = warps_per_lane;
   const int variant = variant_of(best_fit, P);
   if (C < 1 || L < 1 || variant < 0 || L > kMaxThreads / (32 * P) ||
       (P > 1 && L > kMaxNamedLanes) ||
       (statics_in_smem != 0 && statics_in_smem != 1) || smem_bytes < 0 ||
-      (lanes_in_ws != 0 && lanes_in_ws != 1))
+      (lanes_in_ws != 0 && lanes_in_ws != 1) || tenants < 1 ||
+      tenants > kMaxTenants)
     return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
+  const int tn = tenants > 1;
   const int fixed = fixed_shape(R, W, A, lanes_in_ws);
   const int resident = resident_blocks(
-      reinterpret_cast<const void*>(kKernels[fixed][statics_in_smem][variant]),
-      g_state[fixed][statics_in_smem][variant], g_mutex, L * P * 32,
+      reinterpret_cast<const void*>(
+          kKernels[tn][fixed][statics_in_smem][variant]),
+      g_state[tn][fixed][statics_in_smem][variant], g_mutex, L * P * 32,
       smem_bytes, &err);
   if (err != cudaSuccess) return -(int)err;
-  return grid_of(C, L, resident);
+  const int per_tenant = resident / tenants;
+  return grid_of(C, L, per_tenant > 0 ? per_tenant : 1);
 }
 
-// Launch B1/B3 (best_fit=0) or B2 (best_fit=1) over C lanes in the
-// geometry ops/ffd_kernels.launch_geometry picked for spot chunks of
-// `spot_chunk` spots (>= S: one chunk; best-fit takes one chunk only):
-// `lanes_per_block` lanes of `warps_per_lane` warps each, a chunk's
+// Launch B1/B3 (best_fit=0) or B2 (best_fit=1) over C lanes of each of
+// `tenants` stacked problems (B1t/B2t, on the instances that read
+// blockIdx.y; 1 for one problem, on those that do not), grid
+// ffd_blocks() x tenants, in the geometry ops/ffd_kernels.launch_geometry
+// picked for spot chunks of `spot_chunk` spots (>= S: one chunk;
+// best-fit takes one chunk only): `lanes_per_block` lanes of `warps_per_lane` warps each, a chunk's
 // statics in shared memory or read from device memory, and `smem_bytes`
 // of dynamic shared memory, which must be what that geometry takes; the
 // grid is ffd_blocks(). `lane_ws` is null, or, where one lane's state
 // passes a block's shared memory, a device-memory workspace of
 // `lane_ws_words` 32-bit words holding the grid's lanes (blocks x
-// lanes_per_block x lane_words); `smem_bytes` then counts no lane.
+// lanes_per_block x tenants x lane_words); `smem_bytes` then counts no
+// lane.
 int ffd_launch(const float* slot_req, const uint8_t* slot_valid,
                const int32_t* slot_tol, const int32_t* slot_aff,
                const uint8_t* cand_valid, const float* spot_free,
@@ -145,7 +164,7 @@ int ffd_launch(const float* slot_req, const uint8_t* slot_valid,
                int32_t* lane_ws, int C, int K, int R, int W, int A, int S,
                int spot_chunk, int best_fit, int lanes_per_block,
                int warps_per_lane, int statics_in_smem, int smem_bytes,
-               int lane_ws_words, void* stream) {
+               int lane_ws_words, int tenants, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (R < 1 || W < 0 || A < 0 || S < 0 || K < 0 || spot_chunk < 1 ||
       (best_fit && spot_chunk < S) ||
@@ -162,9 +181,10 @@ int ffd_launch(const float* slot_req, const uint8_t* slot_valid,
   const int in_ws = lane_ws != nullptr;
   const int blocks = ffd_blocks(C, R, W, A, best_fit, lanes_per_block,
                                 warps_per_lane, statics_in_smem, smem_bytes,
-                                in_ws);
+                                in_ws, tenants);
   if (blocks < 0) return -blocks;
-  if (lane_ws != nullptr && blocks * lanes_per_block * lw > lane_ws_words)
+  if (lane_ws != nullptr &&
+      (long long)blocks * tenants * lanes_per_block * lw > lane_ws_words)
     return (int)cudaErrorInvalidValue;
   int codes = 0;
   void* args[] = {&slot_req,    &slot_valid, &slot_tol,      &slot_aff,
@@ -175,9 +195,9 @@ int ffd_launch(const float* slot_req, const uint8_t* slot_valid,
                   &spot_chunk,  &lanes_per_block,            &codes};
   const cudaError_t err = cudaLaunchKernel(
       reinterpret_cast<const void*>(
-          kKernels[fixed_shape(R, W, A, in_ws)][statics_in_smem]
+          kKernels[tenants > 1][fixed_shape(R, W, A, in_ws)][statics_in_smem]
                   [variant_of(best_fit, warps_per_lane)]),
-      dim3(blocks), dim3(lanes_per_block * warps_per_lane * 32), args,
+      dim3(blocks, tenants), dim3(lanes_per_block * warps_per_lane * 32), args,
       (size_t)smem_bytes, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();  // clears a launch error
   return (int)(err != cudaSuccess ? err : last);

@@ -44,6 +44,18 @@
 //    resident at once, lane slot j of block b solving lanes
 //    b + G*(j + L*i). A block whose lanes are all invalid writes its
 //    outputs and returns before staging.
+// 8. A tenant axis (B1t/B2t, the planner service's batch): T problems
+//    of one shape stacked along a leading axis launch as one grid of
+//    G x T blocks, gridDim.y = T. Block (b, t) offsets every input and
+//    output by tenant t's stride and solves tenant t's lanes alone, so
+//    it stages tenant t's statics once, as a launch of one problem
+//    does; the persistent grid G is the occupancy split over the T
+//    tenants, and past shared memory the workspace holds G*T*L lanes,
+//    block (b, t) carving slots [(t*G + b)*L, (t*G + b + 1)*L). Only
+//    the TENANTS instances read blockIdx.y and move their pointers: a
+//    launch of one problem (B1-B4, the controller's path) runs an
+//    instance without the offsets, which cost the solo launches 2-5% of
+//    device time when every instance computed them.
 // 7. A lane's state (slot rows, overlay, touched bitmap, partials) sits
 //    in shared memory after the staged statics. Where one lane alone
 //    passes a block's shared memory (K in the thousands), the wrapper
@@ -656,15 +668,20 @@ __device__ __forceinline__ bool solve_lane(const Statics& st,
   return feas;
 }
 
-// The kernel of B1-B4. A persistent grid of G blocks (gridDim.x): block
-// b walks the spot axis in chunks of Sc spots (one chunk unless
-// first-fit is given Sc < S); for each it stages the chunk's statics
-// once, then its lane j (warps [j*P, (j+1)*P)) solves lanes
-// c = b + G*(j + L*i), i = 0, 1, ..., that still have pods to place.
+// The kernel of B1-B4. A persistent grid of G blocks (gridDim.x) for
+// each of T stacked problems (gridDim.y, 1 for one problem): block
+// (b, t) walks tenant t's spot axis in chunks of Sc spots (one chunk
+// unless first-fit is given Sc < S); for each it stages the chunk's
+// statics once, then its lane j (warps [j*P, (j+1)*P)) solves tenant
+// t's lanes c = b + G*(j + L*i), i = 0, 1, ..., that still have pods
+// to place. The pointers are tenant 0's; tenant t's lie C*K*R, C*K,
+// C*K*W, C*K*A, C, S*R, S, S, S*W, S, S*A, C and C*K elements on.
 // `codes` are the overlay's dtype codes (B4); `lane_ws` is the lanes'
 // device-memory workspace, or nullptr to carve them from shared memory
-// (always nullptr for the FIXED instances).
-template <bool BEST_FIT, int P, bool SMEM_STATICS, bool FIXED, class Overlay>
+// (always nullptr for the FIXED instances). Only TENANTS instances solve
+// tenant blockIdx.y; the others solve tenant 0 with gridDim.y = 1.
+template <bool BEST_FIT, int P, bool SMEM_STATICS, bool FIXED, class Overlay,
+          bool TENANTS = false>
 __global__ void __launch_bounds__(kMaxThreads)
 greedy_kernel(const float* __restrict__ slot_req,          // [C, K, R]
               const uint8_t* __restrict__ slot_valid,      // [C, K]
@@ -687,6 +704,26 @@ greedy_kernel(const float* __restrict__ slot_req,          // [C, K, R]
   const int tid = threadIdx.x;
   const int G = gridDim.x;
   const int b = blockIdx.x;
+  // tenant t's problem: every pointer moves on by t's stride, without a
+  // branch on t > 0, which spilled more of the 64 registers a thread of
+  // a 1,024-thread block has (ffd_timing.py)
+  const size_t tenant = TENANTS ? blockIdx.y : 0;
+  if constexpr (TENANTS) {
+    const size_t CK = (size_t)C * K;
+    slot_req += tenant * CK * R;
+    slot_valid += tenant * CK;
+    slot_tol += tenant * CK * W;
+    slot_aff += tenant * CK * A;
+    cand_valid += tenant * C;
+    spot_free += tenant * S * R;
+    spot_count += tenant * S;
+    spot_max_pods += tenant * S;
+    spot_taints += tenant * S * W;
+    spot_ok += tenant * S;
+    spot_aff += tenant * S * A;
+    feasible += tenant * C;
+    chosen += tenant * CK;
+  }
   const int n_lanes = (C - b + G - 1) / G;  // lanes b, b+G, ... below C
 
   // a block of invalid lanes only writes its outputs
@@ -786,7 +823,7 @@ greedy_kernel(const float* __restrict__ slot_req,          // [C, K, R]
   };
   if constexpr (!FIXED) {
     if (lane_ws != nullptr) {
-      run(lane_ws + (size_t)b * L * lw);
+      run(lane_ws + (tenant * G + b) * L * lw);
       return;
     }
   }

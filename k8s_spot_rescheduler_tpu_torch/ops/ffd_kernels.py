@@ -23,6 +23,13 @@
   holding the carry in the layout's dtypes; replaces
   ``pallas_ffd.py:191`` ``_stream_kernel`` (entry
   ``plan_stream_bf_pallas``), the carry-streamed union's best-fit pass.
+- **B1t**/**B2t** ``plan_ffd_tenants_kernel(stacked, best_fit)``: B1/B2
+  over T problems of one shape stacked along a leading tenant axis, in
+  one launch of the same kernel over a (lane block, tenant) grid: the
+  planner service's batched greedy passes (``parallel/tenant_batch``).
+  The JAX package ``vmap``s its union over the tenant axis
+  (``parallel/tenant_batch.py:60``), whose greedy passes are the XLA
+  scan or ``_kernel``; its plain version is ``plan_ffd`` per tenant.
 
 B1-B4 share their lane solve (``csrc/greedy.cuh``); ``launch_geometry``
 picks every kernel's launch shape. A lane's state lives in shared
@@ -34,7 +41,7 @@ On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version (``solver/ffd``), and only
 then. ``LAUNCHES`` counts kernel launches per wrapper (one per launch,
 nowhere else), so a run can show its main path went through the
-kernels.
+kernels; a stacked launch counts once, as B1t or B2t.
 
 Build: ``nvcc`` compiles each source in ``SOURCES`` for ``sm_90a`` into
 a shared library with a plain C interface under ``build/torch_kernels/``
@@ -60,7 +67,7 @@ from typing import NamedTuple
 
 import torch
 
-from k8s_spot_rescheduler_tpu_torch.models.tensors import shapes
+from k8s_spot_rescheduler_tpu_torch.models.tensors import shapes, tenant_slice
 from k8s_spot_rescheduler_tpu_torch.solver.carry import NARROW_LAYOUT
 from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
     ffd_raw,
@@ -69,7 +76,7 @@ from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
 )
 from k8s_spot_rescheduler_tpu_torch.solver.result import SolveResult
 
-LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B1t": 0, "B2t": 0}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = {  # library name -> its one source
@@ -119,7 +126,7 @@ LAUNCH_ARGS = (
     *((dim, "int") for dim in (
         "C", "K", "R", "W", "A", "S", "spot_chunk", "best_fit",
         "lanes_per_block", "warps_per_lane", "statics_in_smem", "smem_bytes",
-        "lane_ws_words",
+        "lane_ws_words", "tenants",
     )),
     ("stream", "stream"),
 )
@@ -357,7 +364,7 @@ def _bind(name: str, lib) -> None:
     smem.argtypes = [i32]
     smem.restype = i32
     blocks = getattr(lib, f"{name}_blocks")
-    blocks.argtypes = [i32] * (10 if name == "ffd" else 9)
+    blocks.argtypes = [i32] * (11 if name == "ffd" else 9)
     blocks.restype = i32
     error = getattr(lib, f"{name}_error_string")
     error.argtypes = [i32]
@@ -379,14 +386,33 @@ def library(name: str = "ffd"):
     return _libs[name]
 
 
-def _check(packed) -> None:
-    dims = shapes(packed)
+def _dims(packed, stacked: bool = False):
+    """(T, (C, K, S, R, W, A)): one problem (T = 1), or T problems of one
+    shape stacked along a leading axis (``stacked``), with one tenant's
+    dims."""
+    if not stacked:
+        return 1, shapes(packed)
+    if packed.slot_req.dim() != 4:
+        raise ValueError(
+            f"a stacked pack has slot_req [T, C, K, R], not "
+            f"{tuple(packed.slot_req.shape)}"
+        )
+    T, C, K, R = packed.slot_req.shape
+    return T, (C, K, packed.spot_free.shape[1], R,
+               packed.spot_taints.shape[2], packed.spot_aff.shape[2])
+
+
+def _check(packed, stacked: bool = False) -> None:
+    T, dims = _dims(packed, stacked)
     dev = packed.slot_req.device
     if dev.type != "cuda":
         raise ValueError(f"kernel inputs must be on a CUDA device, not {dev}")
+    if T < 1:
+        raise ValueError("a stacked launch needs at least one tenant")
+    lead = (T,) if stacked else ()
     for name, dtype, shape_fn in _FIELDS:
         t = getattr(packed, name)
-        want = shape_fn(*dims)
+        want = lead + shape_fn(*dims)
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != want:
             raise ValueError(
                 f"{name}: want {dtype} {want} on {dev}, got "
@@ -421,10 +447,11 @@ def _sm_count(device_index: int) -> int:
 
 
 def card_geometry(packed, best_fit: bool, *, spot_chunk: int | None = None,
-                  layout=None) -> FfdGeometry:
+                  layout=None, stacked: bool = False) -> FfdGeometry:
     """The geometry B1/B2 (B3 with ``spot_chunk``, B4 with its carry
-    ``layout``) take for ``packed`` on its card."""
-    C, K, S, R, W, A = shapes(packed)
+    ``layout``, B1t/B2t on a ``stacked`` pack: one tenant's shapes) take
+    for ``packed`` on its card."""
+    _, (C, K, S, R, W, A) = _dims(packed, stacked)
     if spot_chunk is not None:
         S = min(S, spot_chunk)  # a block holds one chunk's statics
     index = _device_index(packed.slot_req.device)
@@ -434,25 +461,25 @@ def card_geometry(packed, best_fit: bool, *, spot_chunk: int | None = None,
 
 
 def grid_blocks(packed, geometry: FfdGeometry, best_fit: bool,
-                layout=None) -> int:
+                layout=None, *, stacked: bool = False) -> int:
     """Blocks of the persistent grid a launch in ``geometry`` takes on
     ``packed``'s card (``ffd_blocks``, or ``stream_bf_blocks`` for B4:
-    CUDA's occupancy)."""
-    C, _, _, R, W, A = shapes(packed)
+    CUDA's occupancy), for each tenant of a ``stacked`` pack."""
+    T, (C, _, _, R, W, A) = _dims(packed, stacked)
     name = "ffd" if layout is None else "stream_bf"
     with torch.cuda.device(_device_index(packed.slot_req.device)):
-        return _blocks(name, C, R, W, A, best_fit, geometry)
+        return _blocks(name, C, R, W, A, best_fit, geometry, T)
 
 
 def _blocks(name: str, C: int, R: int, W: int, A: int, best_fit: bool,
-            geometry: FfdGeometry) -> int:
+            geometry: FfdGeometry, tenants: int = 1) -> int:
     """``grid_blocks`` on the current device."""
     lib = library(name)
     shape = (geometry.lanes_per_block, geometry.warps_per_lane,
              int(geometry.statics_in_smem), geometry.smem_bytes,
              int(not geometry.lanes_in_smem))
     if name == "ffd":
-        blocks = lib.ffd_blocks(C, R, W, A, int(best_fit), *shape)
+        blocks = lib.ffd_blocks(C, R, W, A, int(best_fit), *shape, tenants)
     else:
         blocks = lib.stream_bf_blocks(C, R, W, A, *shape)
     if blocks < 0:
@@ -481,24 +508,28 @@ def _raise_on(lib, name: str, err: int) -> None:
         raise KernelError(f"{name} kernel launch failed: {message}")
 
 
-def _launch(name: str, packed, geometry: FfdGeometry, **dims):
-    """One launch of library ``name``'s kernel on ``packed`` in
-    ``geometry`` with the further int arguments ``dims``: (feasible bool
-    [C], chosen int32 [C, K]), ``packed`` checked by the caller."""
+def _launch(name: str, packed, geometry: FfdGeometry, *,
+            stacked: bool = False, **dims):
+    """One launch of library ``name``'s kernel on ``packed`` (T problems
+    of a ``stacked`` pack: B1t/B2t) in ``geometry`` with the further int
+    arguments ``dims``: (feasible bool [C], chosen int32 [C, K]), with a
+    leading [T] when stacked; ``packed`` checked by the caller."""
     lib = library(name)
-    C, K, S, R, W, A = shapes(packed)
+    T, (C, K, S, R, W, A) = _dims(packed, stacked)
+    lead = (T,) if stacked else ()
     dev = packed.slot_req.device
     index = _device_index(dev)
-    feasible = torch.empty((C,), dtype=torch.bool, device=dev)
-    chosen = torch.empty((C, K), dtype=torch.int32, device=dev)
+    feasible = torch.empty(lead + (C,), dtype=torch.bool, device=dev)
+    chosen = torch.empty(lead + (C, K), dtype=torch.int32, device=dev)
     spec = LAUNCH_ARGS if name == "ffd" else STREAM_LAUNCH_ARGS
     with torch.cuda.device(index):
         ws_ptr, ws_words = 0, 0  # lanes in shared memory: no workspace
         if not geometry.lanes_in_smem:
-            # one lane slot for each lane of each block of the grid
+            # one lane slot for each lane of each block of each tenant's
+            # grid
             blocks = _blocks(name, C, R, W, A, dims.get("best_fit", 1),
-                             geometry)
-            lanes = blocks * geometry.lanes_per_block
+                             geometry, T)
+            lanes = blocks * T * geometry.lanes_per_block
             ws_words = lanes * geometry.lane_bytes // 4
             if ws_words >= 2**31:
                 raise ValueError(f"a lane workspace of {ws_words} words")
@@ -515,6 +546,7 @@ def _launch(name: str, packed, geometry: FfdGeometry, **dims):
             warps_per_lane=geometry.warps_per_lane,
             statics_in_smem=int(geometry.statics_in_smem),
             smem_bytes=geometry.smem_bytes,
+            tenants=T,
             stream=torch.cuda.current_stream(index).cuda_stream,
             **dims,
         )
@@ -564,6 +596,49 @@ def plan_ffd_kernel(packed, best_fit: bool = False) -> SolveResult:
     feasible, chosen = launch_raw(packed, best_fit)
     LAUNCHES["B2" if best_fit else "B1"] += 1
     assignment = torch.where(feasible[:, None], chosen, -1)
+    return SolveResult(feasible=feasible, assignment=assignment)
+
+
+def launch_tenants_raw(stacked, best_fit: bool,
+                       geometry: FfdGeometry | None = None):
+    """One B1t/B2t launch over T stacked problems, uncounted: (feasible
+    bool [T, C], chosen int32 [T, C, K]), each tenant's rows what
+    ``launch_raw`` gives for it alone. Launches in ``geometry``, by
+    default ``card_geometry`` on one tenant's shapes, on a grid of
+    ``grid_blocks`` x T blocks."""
+    _check(stacked, stacked=True)
+    if geometry is None:
+        geometry = card_geometry(stacked, best_fit, stacked=True)
+    S = stacked.spot_free.shape[1]
+    return _launch("ffd", stacked, geometry, stacked=True,
+                   spot_chunk=max(1, S), best_fit=int(best_fit))
+
+
+def plan_ffd_tenants_plain(stacked, best_fit: bool = False) -> SolveResult:
+    """B1t's and B2t's plain version: ``solver/ffd.plan_ffd`` on each
+    tenant of a stacked pack, stacked: feasible [T, C], assignment
+    [T, C, K]."""
+    T = stacked.slot_req.shape[0]
+    if T < 1:
+        raise ValueError("a stacked solve needs at least one tenant")
+    results = [plan_ffd(tenant_slice(stacked, t), best_fit=best_fit)
+               for t in range(T)]
+    return SolveResult(
+        feasible=torch.stack([r.feasible for r in results]),
+        assignment=torch.stack([r.assignment for r in results]),
+    )
+
+
+def plan_ffd_tenants_kernel(stacked, best_fit: bool = False) -> SolveResult:
+    """B1t (first-fit) or B2t (``best_fit``): B1/B2 over T stacked
+    problems of one shape in one launch (the planner service's batch),
+    the contract of ``plan_ffd`` per tenant: feasible [T, C], assignment
+    [T, C, K]. CPU tensors take the plain version."""
+    if not stacked.slot_req.is_cuda:
+        return plan_ffd_tenants_plain(stacked, best_fit)
+    feasible, chosen = launch_tenants_raw(stacked, best_fit)
+    LAUNCHES["B2t" if best_fit else "B1t"] += 1
+    assignment = torch.where(feasible[..., None], chosen, -1)
     return SolveResult(feasible=feasible, assignment=assignment)
 
 

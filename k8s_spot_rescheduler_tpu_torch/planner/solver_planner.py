@@ -45,7 +45,10 @@ import torch
 
 from k8s_spot_rescheduler_tpu_torch.device import resolve_device
 from k8s_spot_rescheduler_tpu_torch.models.cluster import PDBSpec
-from k8s_spot_rescheduler_tpu_torch.models.delta import emit_packed_delta
+from k8s_spot_rescheduler_tpu_torch.models.delta import (
+    DELTA_FIELDS,
+    emit_packed_delta,
+)
 from k8s_spot_rescheduler_tpu_torch.models.tensors import (
     PackedCluster,
     host_array,
@@ -65,22 +68,6 @@ from k8s_spot_rescheduler_tpu_torch.solver.select import (
 from k8s_spot_rescheduler_tpu_torch.utils import logging as log
 from k8s_spot_rescheduler_tpu_torch.utils import tracing
 from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
-
-
-# resident tensor <- (delta index section, delta data section)
-_DELTA_MAP = (
-    ("slot_req", "lanes", "lane_slot_req"),
-    ("slot_valid", "lanes", "lane_slot_valid"),
-    ("slot_tol", "lanes", "lane_slot_tol"),
-    ("slot_aff", "lanes", "lane_slot_aff"),
-    ("cand_valid", "cand_rows", "cand_valid"),
-    ("spot_free", "spot_rows", "spot_free"),
-    ("spot_count", "spot_rows", "spot_count"),
-    ("spot_max_pods", "spot_rows", "spot_max_pods"),
-    ("spot_taints", "spot_rows", "spot_taints"),
-    ("spot_ok", "spot_rows", "spot_ok"),
-    ("spot_aff", "spot_rows", "spot_aff"),
-)
 
 
 def _observe_source(observation) -> str:
@@ -142,7 +129,7 @@ class TorchSolverPlanner:
         """Write a delta into the resident tensors in place; returns the
         bytes copied host -> device."""
         sent = 0
-        for field, idx_name, data_name in _DELTA_MAP:
+        for field, idx_name, data_name in DELTA_FIELDS:
             idx = getattr(delta, idx_name)
             if not len(idx):
                 continue

@@ -31,11 +31,12 @@ from k8s_spot_rescheduler_tpu_torch.solver.result import SolveResult
 
 
 def _prefer(first: SolveResult, then: SolveResult) -> SolveResult:
-    """``first``'s lanes where it proved them, else ``then``'s."""
+    """``first``'s lanes where it proved them, else ``then``'s (lanes
+    [C], or [T, C] of a tenant stack)."""
     return SolveResult(
         feasible=first.feasible | then.feasible,
         assignment=torch.where(
-            first.feasible[:, None], first.assignment, then.assignment
+            first.feasible[..., None], first.assignment, then.assignment
         ),
     )
 

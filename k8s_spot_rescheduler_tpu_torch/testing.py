@@ -54,6 +54,7 @@ lanes from the device-memory workspace.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -319,6 +320,21 @@ TICKS_PATH = os.path.join(
 )
 
 
+# the planner service's fleet: (tenant, synthetic config, seed), each
+# tenant an agent planning its own fake cluster through the service;
+# ``tests/torch_port_fixtures.py service`` freezes what the JAX
+# package's service answers for it into ``SERVICE_PATH``
+SERVICE_TENANTS = tuple(
+    (f"config{config_id}-seed{seed}", config_id, seed)
+    for config_id in (3, 4) for seed in range(4)
+)
+SERVICE_HORIZON = 32  # the frozen schedule batch's horizon
+SERVICE_TICKS = 2  # agent ticks per tenant through the service
+SERVICE_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "data", "service_seed0.json"
+)
+
+
 def controller_config(config_cls, spec, horizon: int, observe: str):
     """The controller runs' configuration, of either package's
     ``ReschedulerConfig`` class: the spec's resources, a 1 s drain delay
@@ -331,6 +347,31 @@ def controller_config(config_cls, spec, horizon: int, observe: str):
         schedule_horizon=horizon,
         use_columnar=observe != "objects",
     )
+
+
+def service_config(config_cls, spec, **overrides):
+    """An agent's configuration for the service fleet, of either
+    package's ``ReschedulerConfig`` class: ``controller_config`` on the
+    mirror with schedules off (each tick sends one single-plan request),
+    with ``overrides`` (the planner URL and timeout)."""
+    return dataclasses.replace(
+        controller_config(config_cls, spec, 0, "columnar"), **overrides
+    )
+
+
+def agent_pack(planner, client):
+    """The pack an agent ``planner`` (either package's ``RemotePlanner``)
+    sends for fake cluster ``client`` on its first tick: the cluster's
+    columnar mirror packed through the planner's high-water pads
+    (``planner/base.pack_observation``)."""
+    cfg = planner.config
+    store = client.columnar_store(
+        cfg.resources,
+        on_demand_label=cfg.on_demand_node_label,
+        spot_label=cfg.spot_node_label,
+    )
+    packed, _ = planner._pack_observation(store, client.list_pdbs())
+    return packed
 
 
 def cluster_digest(client) -> str:
@@ -352,18 +393,20 @@ def run_ticks(rescheduler, client, ticks: int) -> list:
     drain evicts a node's pods from a thread pool, in no fixed order),
     the skip reason ("" when the tick ran) and whether the fallback
     planner ran."""
-    out = []
-    for _ in range(ticks):
-        client.clock.sleep(rescheduler.effective_interval())
-        seen = len(client.evictions)
-        res = rescheduler.tick()
-        out.append({
-            "drained": list(res.drained),
-            "evicted": sorted(client.evictions[seen:]),
-            "skipped": res.skipped,
-            "planner_fallback": bool(res.planner_fallback),
-        })
-    return out
+    return [tick_once(rescheduler, client) for _ in range(ticks)]
+
+
+def tick_once(rescheduler, client) -> dict:
+    """One tick of ``run_ticks`` and its record."""
+    client.clock.sleep(rescheduler.effective_interval())
+    seen = len(client.evictions)
+    res = rescheduler.tick()
+    return {
+        "drained": list(res.drained),
+        "evicted": sorted(client.evictions[seen:]),
+        "skipped": res.skipped,
+        "planner_fallback": bool(res.planner_fallback),
+    }
 
 
 def load_ticks(path: str | None = None) -> dict:

@@ -10,11 +10,10 @@ one source of the planner's defaults too
 
 Knobs of modules not yet ported are left out, with their modules: the
 mesh and memory ladder (``mesh_shape``, ``auto_shard``,
-``solver_hbm_budget``, ``carry_chunks``), the planner service and its
-agent (``planner_url(s)``, ``planner_timeout``, ``delta_wire_enabled``,
-``service_*``, ``device_sick_threshold``), chaos injection
-(``chaos_*``), the sidecar's ``debug_endpoints`` and the JAX-only
-``jax_cache_dir``.
+``solver_hbm_budget``, ``carry_chunks``), chaos injection
+(``chaos_*``; ``service_chaos_profile`` takes only ``""``, ``off`` and
+``none`` until ``service/chaos.py`` is ported), the debug endpoints
+(``debug_endpoints``) and the JAX-only ``jax_cache_dir``.
 """
 
 from __future__ import annotations
@@ -23,6 +22,8 @@ import dataclasses
 from typing import Sequence
 
 SOLVERS = ("torch", "numpy")
+# the service chaos profiles of the port: off, by any of its names
+SERVICE_CHAOS_PROFILES = ("", "off", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,6 +147,44 @@ class ReschedulerConfig:
     # incremental mirror; drift forces a store replace + full repack.
     # Runs inline on the tick thread. 0 disables.
     resync_interval: float = 300.0
+    # --- the multi-tenant planner service and its agents (service/) ---
+    # Agent mode: plan through a remote planner service instead of the
+    # in-process solver (observe, pack and actuate stay local; packed
+    # tensors cross the binary wire of service/wire.py; when every
+    # endpoint is unusable the tick plans on the local numpy oracle).
+    # Empty = plan in-process.
+    planner_url: str = ""
+    # An ORDERED comma-separated list of planner endpoints, each with its
+    # own consecutive-failure breaker; takes precedence over planner_url.
+    planner_urls: str = ""
+    # Per-plan HTTP deadline of the agent's service call.
+    planner_timeout: float = 10.0
+    # Ship each tick's churn delta (wire v4) to an endpoint that holds
+    # the previous pack; any disagreement costs one full-pack resync.
+    delta_wire_enabled: bool = True
+    # Device-health watchdog (service/devhealth.py): consecutive
+    # slower-than-baseline batched solves before the service serves
+    # from the numpy-oracle host path; 0 disables the watchdog. A fault
+    # of the card's kernels is not a verdict: it ends the service.
+    device_sick_threshold: int = 3
+    # Graceful drain (SIGTERM): seconds queued batches may finish before
+    # the rest are evicted with 503.
+    service_drain_grace: float = 5.0
+    # Warm restart: directory of the per-tenant pack fingerprints and
+    # the recently-used bucket list; empty = cold restarts.
+    service_state_dir: str = ""
+    # Service-path fault injection: only "", "off" and "none" (off)
+    # until service/chaos.py is ported.
+    service_chaos_profile: str = ""
+    # How long the batching scheduler waits to coalesce concurrent
+    # tenants into one batch; 0 = dispatch immediately.
+    service_batch_window: float = 0.02
+    # Bounded queue wait before 503 + Retry-After (measured cadence).
+    service_queue_timeout: float = 30.0
+    # Resync-storm admission class: concurrent full-pack resync ingests
+    # allowed, and their byte ledger (0 = the device memory budget).
+    service_resync_ingest_cap: int = 4
+    service_resync_ingest_budget: int = 0
     # --- tick tracing + flight recorder ---
     # Per-tick span-tree tracing (utils/tracing.py); off = the phase
     # histograms alone.
@@ -195,3 +234,37 @@ class ReschedulerConfig:
             raise ValueError("resync_interval must be >= 0 (0 = off)")
         if self.flight_ring_size < 1:
             raise ValueError("flight_ring_size must be >= 1")
+        if self.planner_timeout <= 0:
+            raise ValueError("planner_timeout must be > 0")
+        if self.service_batch_window < 0:
+            raise ValueError(
+                "service_batch_window must be >= 0 (0 = no coalescing)"
+            )
+        if self.service_queue_timeout <= 0:
+            raise ValueError("service_queue_timeout must be > 0")
+        if self.service_resync_ingest_cap < 1:
+            raise ValueError(
+                "service_resync_ingest_cap must be >= 1 (the class "
+                "must admit at least one ingest or no tenant can ever "
+                "seed its cache)"
+            )
+        if self.service_resync_ingest_budget < 0:
+            raise ValueError(
+                "service_resync_ingest_budget must be >= 0 (0 = derive "
+                "from the device memory budget)"
+            )
+        if self.device_sick_threshold < 0:
+            raise ValueError(
+                "device_sick_threshold must be >= 0 (0 = watchdog off)"
+            )
+        if self.service_drain_grace < 0:
+            raise ValueError(
+                "service_drain_grace must be >= 0 (0 = evict queued "
+                "work immediately on drain)"
+            )
+        if self.service_chaos_profile not in SERVICE_CHAOS_PROFILES:
+            raise ValueError(
+                f"unknown service_chaos_profile "
+                f"{self.service_chaos_profile!r}: service/chaos.py is not "
+                f"ported (known: off, none)"
+            )

@@ -383,12 +383,10 @@ def test_cli_drains_as_the_reference(caplog):
 def test_cli_refuses_the_flags_of_later_slices():
     """The flags whose modules are not ported exit 2; the kube source,
     the watch, the mirror and the lease are accepted (the drains through
-    a stub server: ``tests/test_torch_kube.py``)."""
-    for argv in (["--serve", "127.0.0.1:1"], ["--planner-url", "x"],
-                 ["--planner-urls", "x,y"], ["--planner-timeout", "1s"],
-                 ["--delta-wire-enabled", "true"],
-                 ["--service-batch-window", "1s"],
-                 ["--device-sick-threshold", "3"],
+    a stub server: ``tests/test_torch_kube.py``), and so are the planner
+    service's and its agents' (``tests/test_torch_service.py``)."""
+    for argv in (["--service-chaos-profile", "flaky"],
+                 ["--service-chaos-seed", "1"],
                  ["--chaos-profile", "flaky"], ["--mesh-shape", "2x2"],
                  ["--auto-shard", "true"], ["--solver-hbm-budget", "1"],
                  ["--carry-chunks", "2"], ["--debug-endpoints", "true"],
@@ -400,6 +398,15 @@ def test_cli_refuses_the_flags_of_later_slices():
         build_parser,
         config_from_args,
     )
+
+    service = config_from_args(build_parser().parse_args([
+        "--serve", "127.0.0.1:1", "--planner-url", "x",
+        "--planner-urls", "x,y", "--planner-timeout", "1s",
+        "--delta-wire-enabled", "true", "--service-batch-window", "1s",
+        "--device-sick-threshold", "3",
+    ]))
+    assert (service.planner_urls, service.planner_timeout,
+            service.service_batch_window) == ("x,y", 1.0, 1.0)
 
     args = build_parser().parse_args([
         "--cluster", "kube:http://127.0.0.1:1", "--watch-cache", "false",

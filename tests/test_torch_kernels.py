@@ -717,3 +717,125 @@ def test_stream_first_fit_on_the_card(cuda_device, carry_chunks):
     assert ffd_kernels.LAUNCHES[name] > before[name]
     torch.cuda.synchronize()
     _assert_same(got, plan_ffd(packed))
+
+
+# --- B1t/B2t: B1/B2 over a tenant axis -------------------------------------------
+
+
+def _stacked(T: int, seed: int, C=20, K=6, S=150, R=3, pad: bool = True):
+    """T seeded random packs of one shape stacked along a leading tenant
+    axis (numpy); with ``pad`` and T > 1 the last tenant is an
+    all-invalid pad tenant (invalid lanes, empty slots, no spots)."""
+    rng = np.random.default_rng(seed)
+    packs = [random_pack(rng, C, K, S, R) for _ in range(T)]
+    if pad and T > 1:
+        last = packs[-1]
+        packs[-1] = PackedCluster(*(np.zeros_like(f) for f in last))
+    return PackedCluster(*(
+        np.stack([getattr(p, f) for p in packs]) for f in PackedCluster._fields
+    ))
+
+
+def _tenant(stacked, t: int):
+    return PackedCluster(*(f[t] for f in stacked))
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_tenant_wrapper_takes_the_plain_version_on_cpu_tensors(T):
+    stacked = to_device(_stacked(T, 5), "cpu")
+    before = dict(ffd_kernels.LAUNCHES)
+    for best_fit in (False, True):
+        got = ffd_kernels.plan_ffd_tenants_kernel(stacked, best_fit=best_fit)
+        assert got.feasible.shape == (T, 20)
+        assert got.assignment.shape == (T, 20, 6)
+        for t in range(T):
+            want = plan_ffd(_tenant(stacked, t), best_fit=best_fit)
+            assert torch.equal(got.feasible[t], want.feasible)
+            assert torch.equal(got.assignment[t], want.assignment)
+    assert ffd_kernels.LAUNCHES == before
+
+
+def test_tenant_raw_launch_refuses_cpu_and_unstacked_packs():
+    with pytest.raises(ValueError, match="CUDA"):
+        ffd_kernels.launch_tenants_raw(to_device(_stacked(2, 0), "cpu"),
+                                       False)
+    with pytest.raises(ValueError, match="stacked"):
+        ffd_kernels.launch_tenants_raw(to_device(_host_pack(0), "cpu"), False)
+
+
+def _check_tenants(stacked, best_fit: bool):
+    """One B1t/B2t launch on ``stacked`` (on the card) against its plain
+    version and against one solo B1/B2 launch per tenant, results and
+    raw outputs."""
+    name = "B2t" if best_fit else "B1t"
+    before = ffd_kernels.LAUNCHES[name]
+    got = ffd_kernels.plan_ffd_tenants_kernel(stacked, best_fit=best_fit)
+    assert ffd_kernels.LAUNCHES[name] == before + 1
+    raw_feasible, raw_chosen = ffd_kernels.launch_tenants_raw(stacked,
+                                                              best_fit)
+    plain = ffd_kernels.plan_ffd_tenants_plain(stacked, best_fit)
+    torch.cuda.synchronize()
+    _assert_same(got, plain)
+    for t in range(stacked.slot_req.shape[0]):
+        tenant = _tenant(stacked, t)
+        solo = ffd_kernels.plan_ffd_kernel(tenant, best_fit=best_fit)
+        feasible, chosen = ffd_kernels.launch_raw(tenant, best_fit)
+        torch.cuda.synchronize()
+        assert torch.equal(got.feasible[t], solo.feasible)
+        assert torch.equal(got.assignment[t], solo.assignment)
+        assert torch.equal(raw_feasible[t], feasible)
+        assert torch.equal(raw_chosen[t], chosen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("best_fit", [False, True], ids=["B1t", "B2t"])
+@pytest.mark.parametrize("T", [1, 3, 8])
+def test_tenant_kernel_matches_solo_launches_and_plain(cuda_device, T,
+                                                       best_fit):
+    _check_tenants(to_device(_stacked(T, 30 + T), cuda_device), best_fit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("best_fit", [False, True], ids=["B1t", "B2t"])
+def test_tenant_kernel_statics_in_device_memory(cuda_device, best_fit):
+    """S=9000 at R=4: each tenant's statics pass shared memory and are
+    read from device memory at the tenant's offset."""
+    stacked = to_device(_stacked(3, 8, C=40, K=8, S=9000, R=4), cuda_device)
+    g = ffd_kernels.card_geometry(stacked, best_fit, stacked=True)
+    assert not g.statics_in_smem
+    _check_tenants(stacked, best_fit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("best_fit", [False, True], ids=["B1t", "B2t"])
+def test_tenant_kernel_past_shared_memory(cuda_device, best_fit):
+    """``past_smem_pack`` stacked T=3: every tenant's lanes live in the
+    device-memory workspace of G x T x L lanes."""
+    stacked = PackedCluster(*(
+        np.stack([getattr(past_smem_pack(seed), f) for seed in range(3)])
+        for f in PackedCluster._fields
+    ))
+    stacked = to_device(stacked, cuda_device)
+    assert not ffd_kernels.card_geometry(stacked, best_fit,
+                                         stacked=True).lanes_in_smem
+    _check_tenants(stacked, best_fit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("best_fit", [False, True], ids=["B1t", "B2t"])
+def test_every_tenant_geometry_gives_the_same_answer(cuda_device, best_fit):
+    stacked = to_device(_stacked(4, 17, C=37, K=5, S=300, R=4), cuda_device)
+    want = ffd_kernels.plan_ffd_tenants_plain(stacked, best_fit)
+    C, K, S, R, W, A = 37, 5, 300, 4, 1, 2
+    for warps in ((1, 2, 4, 8) if best_fit else (1,)):
+        for L in (1, 3):
+            for in_smem in (True, False):
+                g = ffd_kernels.fixed_geometry(K, S, R, W, A, L, warps,
+                                               in_smem)
+                feasible, chosen = ffd_kernels.launch_tenants_raw(
+                    stacked, best_fit, g)
+                torch.cuda.synchronize()
+                assert torch.equal(feasible, want.feasible)
+                assert torch.equal(
+                    torch.where(feasible[..., None], chosen, -1),
+                    want.assignment)

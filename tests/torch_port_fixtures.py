@@ -41,9 +41,17 @@ the config, a watch client and its mirror; the CLI run of
 subprocess. It writes each run's cluster digest and per-tick drains,
 evicted pod UIDs and skip reasons to ``data/ticks_seed0.json``.
 
+The ``service`` target runs the JAX package's planner service on the
+fleet of ``testing.SERVICE_TENANTS`` (configs 3 and 4 at seeds 0-3) and
+writes ``data/service_seed0.json`` (``reference_service``): digests,
+pack fingerprints and rows, not packs, which the chip smoke rebuilds
+from the seeds. It solves one tenant a batch to bound this CPU's memory
+and takes about an hour.
+
 Run from the repo root:
 
     JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures 3 4 contended ticks
+    JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures service
 
 It writes ``k8s_spot_rescheduler_tpu_torch/data/<name>_seed<seed>.npz``
 (``config3``, ``config4``, ``contended``). The port's tests check that
@@ -376,10 +384,102 @@ def freeze_ticks(seed: int = 0) -> str:
     return testing.TICKS_PATH
 
 
+def reference_service(seed: int = 0) -> str:
+    """Write ``testing.SERVICE_PATH``: the JAX package's planner service
+    on the fleet of ``testing.SERVICE_TENANTS``. For each tenant, its
+    fresh cluster's digest, the fingerprint of the pack its agent sends
+    first (``testing.agent_pack``), the ``[3+K]`` row a single-plan
+    batch answers (``PlannerService``, one tenant a batch: batched rows
+    equal solo ones, so the cap only bounds this CPU's memory), the solo
+    selection of the same pack (``make_fused_planner``), the
+    ``[SERVICE_HORIZON, 3+K]`` schedule a schedule request answers, and
+    ``SERVICE_TICKS`` controller ticks of a ``RemotePlanner`` agent
+    through a ``ServiceServer`` on 127.0.0.1 (drains, evicted pod UIDs,
+    skips), with no agent falling back."""
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS, generate_cluster
+    from k8s_spot_rescheduler_tpu.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu.metrics import registry as metrics
+    from k8s_spot_rescheduler_tpu.models.columnar import pack_fingerprint
+    from k8s_spot_rescheduler_tpu.service.agent import RemotePlanner
+    from k8s_spot_rescheduler_tpu.service.server import (
+        PlannerService,
+        ServiceServer,
+    )
+    from k8s_spot_rescheduler_tpu.solver.fallback import union_program
+    from k8s_spot_rescheduler_tpu.solver.select import make_fused_planner
+    from k8s_spot_rescheduler_tpu.utils.clock import FakeClock
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    fused = make_fused_planner(union_program(8, True))
+    tenants = []
+    server = None
+    for name, config_id, tenant_seed in testing.SERVICE_TENANTS:
+        spec = CONFIGS[config_id]
+        if server is None:
+            server = ServiceServer(
+                testing.service_config(ReschedulerConfig, spec),
+                "127.0.0.1:0", max_batch_tenants=1,
+            )
+            server.start_background()
+        cfg = testing.service_config(
+            ReschedulerConfig, spec,
+            planner_url=f"http://{server.address}", planner_timeout=900.0,
+        )
+        client = generate_cluster(spec, tenant_seed, reschedule_evicted=True)
+        digest = testing.cluster_digest(client)
+        agent = RemotePlanner(cfg, tenant=name)
+        packed = testing.agent_pack(agent, generate_cluster(spec, tenant_seed))
+        svc = PlannerService(cfg, clock=FakeClock(), batch_window_s=0,
+                             max_batch_tenants=1)
+        plan = svc.submit_nowait(name, packed)
+        sched = svc.submit_nowait(name, packed,
+                                  schedule_horizon=testing.SERVICE_HORIZON)
+        while svc.drain_once():
+            pass
+        reply = plan.reply
+        row = [reply.index, int(reply.found), reply.n_feasible,
+               *np.asarray(reply.row).tolist()]
+        solo = np.asarray(fused(packed)).tolist()
+        assert row == solo, (name, row[:3], solo[:3])
+        fallback = metrics.service_snapshot()["remote_planner_fallback"]
+        r = Rescheduler(client, agent, cfg, clock=client.clock,
+                        recorder=client)
+        records = testing.run_ticks(r, client, testing.SERVICE_TICKS)
+        assert metrics.service_snapshot()["remote_planner_fallback"] == fallback
+        tenants.append({
+            "name": name,
+            "config": config_id,
+            "seed": tenant_seed,
+            "digest": digest,
+            "pack_fingerprint": pack_fingerprint(packed),
+            "row": row,
+            "solo": solo,
+            "schedule": np.asarray(sched.reply.steps).tolist(),
+            "records": records,
+        })
+        print(f"{name}: row {row[:3]}, "
+              f"{sum(s[1] == 1 for s in tenants[-1]['schedule'])} schedule "
+              f"steps, drained {[t['drained'] for t in records]}",
+              file=sys.stderr)
+    server.close()
+    out = {
+        "seed": seed,
+        "horizon": testing.SERVICE_HORIZON,
+        "ticks": testing.SERVICE_TICKS,
+        "tenants": tenants,
+    }
+    with open(testing.SERVICE_PATH, "w") as f:
+        json.dump(out, f)
+        f.write("\n")
+    return testing.SERVICE_PATH
+
+
 def main(argv) -> int:
     for arg in argv or ["3"]:
         if arg == "ticks":
             path = freeze_ticks()
+        elif arg == "service":
+            path = reference_service()
         else:
             path = freeze(arg if arg == CONTENDED else int(arg))
         print(f"{path}: {os.path.getsize(path)} bytes")
