@@ -126,6 +126,7 @@ object of kernel numbers, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -1117,18 +1118,179 @@ def controller_phase(np, torch, fk, kind, card, here):
                                            lanes, kind, card)
 
 
-def kube_phase(torch, fk, kind, card, here):
+def native_counters():
+    """Count the native decoder's batches and the mirror's bulk seeds:
+    wraps ``io/native_ingest.parse_pod_list``/``parse_node_list`` and
+    ``ColumnarStore.bulk_add_pods`` (here, not in the package) and
+    returns the live counts ({"pods", "nodes", "bulk"}: batches decoded,
+    stores seeded in one pass)."""
+    from k8s_spot_rescheduler_tpu_torch.io import native_ingest
+    from k8s_spot_rescheduler_tpu_torch.models.columnar import ColumnarStore
+
+    counts = {"pods": 0, "nodes": 0, "bulk": 0}
+
+    def counted(fn, key):
+        def wrapper(*args):
+            out = fn(*args)
+            if out is not None and out is not False:
+                counts[key] += 1
+            return out
+        return wrapper
+
+    native_ingest.parse_pod_list = counted(native_ingest.parse_pod_list,
+                                           "pods")
+    native_ingest.parse_node_list = counted(native_ingest.parse_node_list,
+                                            "nodes")
+    ColumnarStore.bulk_add_pods = counted(ColumnarStore.bulk_add_pods, "bulk")
+    return counts
+
+
+def mirror_pack(watching, cfg):
+    """The watch mirror's pack, the seconds its ``ColumnarFeed`` took to
+    seed (the first ``columnar_store`` call) and the pack's, and the
+    feed's split (``SeedSpans(feed=True)``)."""
+    t0 = time.perf_counter()
+    with SeedSpans(feed=True) as spans:
+        store = watching.columnar_store(
+            cfg.resources, on_demand_label=cfg.on_demand_node_label,
+            spot_label=cfg.spot_node_label)
+    t1 = time.perf_counter()
+    packed = store.pack(watching.list_pdbs())[0]
+    return packed, t1 - t0, time.perf_counter() - t1, spans.line()
+
+
+class SeedSpans:
+    """Host-clock durations inside a watch seed, by resource: each
+    watcher's whole LIST (``Watcher._relist``: GET, decode, store), its
+    GET (``_request``: the bytes and ``json.loads``; ``_request_raw``:
+    the bytes alone), the native decode into views
+    (``native_ingest.parse_pod_list``/``parse_node_list``), the volume
+    re-resolution after the sync, and the polling client's LIST +
+    decode (``_all_pods``/``_all_nodes``). Wraps those functions (here,
+    not in the package) while in use."""
+
+    def __init__(self, feed: bool = False):
+        # feed: time the mirror's seed instead (``ColumnarStore.add_node``
+        # per node, then ``add_pod`` per pod or one ``bulk_add_pods``)
+        self.feed = feed
+        self.ms = {}
+
+    def _wrap(self, owner, name, key_of):
+        fn = getattr(owner, name)
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                key = key_of(*args)
+                self.ms[key] = (self.ms.get(key, 0.0)
+                                + (time.perf_counter() - t0) * 1e3)
+
+        setattr(owner, name, wrapper)
+        return owner, name, fn
+
+    def __enter__(self):
+        from k8s_spot_rescheduler_tpu_torch.io import kube, native_ingest, watch
+        from k8s_spot_rescheduler_tpu_torch.models.columnar import ColumnarStore
+
+        if self.feed:
+            self._saved = [
+                self._wrap(ColumnarStore, name, lambda *a, n=name: n)
+                for name in ("add_node", "add_pod", "bulk_add_pods")]
+            return self
+        res = {"/api/v1/pods": "pods", "/api/v1/nodes": "nodes"}
+        self._saved = [
+            self._wrap(watch.Watcher, "_relist",
+                       lambda w: f"{w.resource} LIST"),
+            self._wrap(kube.KubeClusterClient, "_request",
+                       lambda c, m, path, *a: f"{res.get(path, path)} GET "
+                                              f"+ json.loads"),
+            self._wrap(kube.KubeClusterClient, "_request_raw",
+                       lambda c, m, path: f"{res.get(path, path)} GET"),
+            self._wrap(native_ingest, "parse_pod_list",
+                       lambda data: "pods native decode"),
+            self._wrap(native_ingest, "parse_node_list",
+                       lambda data: "nodes native decode"),
+            self._wrap(watch.WatchingKubeClusterClient, "_refresh_volumes",
+                       lambda *a, **kw: "volume re-resolution"),
+            self._wrap(kube.KubeClusterClient, "_all_pods",
+                       lambda c: "pods polling LIST + decode"),
+            self._wrap(kube.KubeClusterClient, "_all_nodes",
+                       lambda c: "nodes polling LIST + decode"),
+        ]
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+    def line(self) -> str:
+        if self.feed:
+            return ", ".join(f"{k} {v:.1f}" for k, v in self.ms.items()) + " ms"
+        keys = [k for k in self.ms if k.startswith(("pods", "nodes"))]
+        return ", ".join(f"{k} {self.ms[k]:.1f}" for k in sorted(keys)) + (
+            f", volume re-resolution {self.ms.get('volume re-resolution', 0):.1f}"
+            f" ms")
+
+
+def decode_breakdown(stub, resource: str) -> dict:
+    """One LIST of ``resource`` from ``stub`` and its decode both ways,
+    alone (no watcher or stub thread competing for the interpreter), in
+    seconds: the GET of the raw bytes, the native decode into views, and
+    ``json.loads`` + the Python decoder per object."""
+    from k8s_spot_rescheduler_tpu_torch.io import kube, native_ingest
+
+    client = kube.KubeClusterClient(stub.url)
+    t0 = time.perf_counter()
+    body = client._request_raw("GET", f"/api/v1/{resource}")
+    t1 = time.perf_counter()
+    parse = (native_ingest.parse_pod_list if resource == "pods"
+             else native_ingest.parse_node_list)
+    views = parse(body).views()
+    t2 = time.perf_counter()
+    decode = kube.decode_pod if resource == "pods" else kube.decode_node
+    objs = [decode(o) for o in json.loads(body)["items"]]
+    t3 = time.perf_counter()
+    check(len(views) == len(objs), f"{resource}: native and Python counts")
+    return {"bytes": len(body), "get": t1 - t0, "native": t2 - t1,
+            "python": t3 - t2, "n": len(objs)}
+
+
+def same_pack(np, a, b) -> bool:
+    return all(np.asarray(getattr(a, f)).dtype == np.asarray(getattr(b, f)).dtype
+               and np.array_equal(np.asarray(getattr(a, f)),
+                                  np.asarray(getattr(b, f)))
+               for f in a._fields)
+
+
+def kube_phase(np, torch, fk, kind, card, here):
     """Phase 7: the production observe path. ``testing.StubApiServer``
-    serves config 3 at the frozen seed over HTTP on 127.0.0.1; the CLI's
-    ``start_watch_client`` seeds a ``WatchingKubeClusterClient`` by LIST
-    (Python decoders), its ``ColumnarFeed`` seeds the mirror, and the
-    port's ``Rescheduler`` ticks against it (``testing.KUBE_RUNS``),
-    each tick after the mirror caught up with the server's events, held
-    against the JAX package's frozen run on the same stub. Then the CLI
-    runs as a subprocess with ``--cluster kube:URL`` against a config-1
-    stub. Returns the launch counts of the kube runs."""
+    serves config 3 at the frozen seed over HTTP on 127.0.0.1. The CLI's
+    ``start_watch_client`` seeds a ``WatchingKubeClusterClient`` twice:
+    by LIST through the Python decoders with a per-pod ``ColumnarFeed``
+    seed, and by one native LIST decode with the feed's bulk seed
+    (``ColumnarStore.bulk_add_pods``), each timed; the two mirrors must
+    pack bit-identically and every pod of the native store must be a
+    ``PodView``. The port's ``Rescheduler`` ticks on the native mirror
+    (``testing.KUBE_RUNS``), each tick after the mirror caught up with
+    the server's events, held against the JAX package's frozen run on
+    the same stub; then again under a ``ChaosClusterClient`` with only
+    watch faults (``testing.WATCH_FAULTS``: scripted 410s, dropped
+    streams), whose re-lists must happen and decode natively, with the
+    same ticks. Then the polling client (no watch cache) through the
+    stub, ``testing.POLL_RUNS``, with the native and the Python
+    decoders, against the frozen JAX run, its ``kube.get`` time printed
+    both ways. Last the CLI runs as a subprocess with ``--cluster
+    kube:URL`` against a config-1 stub. Returns the launch counts of
+    the kube runs."""
     from k8s_spot_rescheduler_tpu_torch import testing
     from k8s_spot_rescheduler_tpu_torch.cli.main import start_watch_client
+    from k8s_spot_rescheduler_tpu_torch.io import native_ingest
+    from k8s_spot_rescheduler_tpu_torch.io.chaos import (
+        ChaosClusterClient,
+        FaultPlan,
+    )
     from k8s_spot_rescheduler_tpu_torch.io.kube import KubeClusterClient
     from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
         CONFIGS,
@@ -1143,90 +1305,244 @@ def kube_phase(torch, fk, kind, card, here):
     from k8s_spot_rescheduler_tpu_torch.utils.clock import FakeClock
     from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
 
+    t0 = time.perf_counter()
+    check(native_ingest.available(),
+          "the native LIST decoder is not available on the card's machine")
+    log(f"[7] native LIST decoder built and loaded in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms -> "
+        f"{os.path.relpath(native_ingest.library_path(), here)}")
+    counts = native_counters()
     frozen = testing.load_ticks()
     totals = {name: 0 for name in fk.LAUNCHES}
     fallbacks0 = metrics.robustness_snapshot()["planner_fallback"]
     for name, config_id, ticks, horizon in testing.KUBE_RUNS:
         want = frozen["runs"][name]
         spec = CONFIGS[config_id]
-        client = generate_cluster(spec, frozen["seed"])
-        check(testing.cluster_digest(client) == want["digest"],
-              f"{name}: generated cluster digest != frozen")
-        t0 = time.perf_counter()
-        stub = testing.StubApiServer.from_cluster(client)
-        encode_s = time.perf_counter() - t0
-        n_pods = len(stub.objects["pods"])
         cfg = testing.controller_config(ReschedulerConfig, spec, horizon,
                                         "kube")
-        planner = TorchSolverPlanner(cfg, device="cuda")
-        seen = testing.track_observations(planner)
-        clock = FakeClock()
-        timing = {}
-        lines, packs, records = [], [], []
-
-        def start(kube_client):
+        for faults in (None, testing.WATCH_FAULTS):
+            run = name if faults is None else f"{name} under watch faults"
+            client = generate_cluster(spec, frozen["seed"])
+            check(testing.cluster_digest(client) == want["digest"],
+                  f"{run}: generated cluster digest != frozen")
             t0 = time.perf_counter()
-            watching = start_watch_client(kube_client, cfg, clock)
-            timing["list"] = time.perf_counter() - t0
-            return watching
-
-        def seed_mirror(watching):
-            check(hasattr(watching, "columnar_store"),
-                  f"{name}: the watch caches did not sync; the CLI fell "
-                  f"back to polling")
-            t0 = time.perf_counter()
-            watching.columnar_store(cfg.resources,
-                                    on_demand_label=cfg.on_demand_node_label,
-                                    spot_label=cfg.spot_node_label)
-            timing["feed"] = time.perf_counter() - t0
-
-        def make(watching):
-            r = Rescheduler(watching, planner, cfg, clock=clock,
-                            recorder=watching)
-            tick = r.tick
-
-            def timed_tick():
+            stub = testing.StubApiServer.from_cluster(client)
+            encode_s = time.perf_counter() - t0
+            n_pods = len(stub.objects["pods"])
+            clock = FakeClock()
+            timing = {}
+            py_pack = None
+            if faults is None:
+                split = {r: decode_breakdown(stub, r)
+                         for r in ("pods", "nodes")}
+                log("[7] decoders alone: " + "; ".join(
+                    f"{r} LIST ({d['n']} objects, {d['bytes'] / 1e6:.1f} MB): "
+                    f"GET {d['get'] * 1e3:.1f} ms, native decode into views "
+                    f"{d['native'] * 1e3:.1f} ms, json.loads + Python decoder "
+                    f"{d['python'] * 1e3:.1f} ms"
+                    for r, d in split.items()) + f" on {kind} [{card}]")
+                # the Python seed: LIST + decode_pod, add_pod per pod
+                before = dict(counts)
+                kc = KubeClusterClient(stub.url)
+                kc.use_native_ingest = False
                 t0 = time.perf_counter()
-                res = tick()
-                torch.cuda.synchronize()
-                tick_ms = (time.perf_counter() - t0) * 1e3
-                trace = (flight.last_tick() or {}).get("trace", {})
-                packs.extend(sp.get("attrs", {}).get("source") for sp in
-                             walk_spans(trace) if sp["name"] == "plan.pack")
-                lines.append(tick_line(7, name, len(lines) + 1, tick_ms,
-                                       trace, list(res.drained)))
-                return res
+                with SeedSpans() as py_spans:
+                    py = start_watch_client(kc, cfg, clock)
+                timing["py_list"] = time.perf_counter() - t0
+                try:
+                    (py_pack, timing["py_feed"], timing["py_pack"],
+                     timing["py_feed_spans"]) = mirror_pack(py, cfg)
+                finally:
+                    py.stop()
+                check(counts == before, "the Python seed decoded natively")
+            planner = TorchSolverPlanner(cfg, device="cuda")
+            seen = testing.track_observations(planner)
+            lines, packs, chaos = [], [], []
+            before = dict(counts)
 
-            r.tick = timed_tick
-            return r
+            def start(kube_client, faults=faults):
+                # what the CLI sets: the native decoder where the
+                # configured resources fit its schema
+                kube_client.use_native_ingest = native_ingest.supports(
+                    cfg.resources)
+                if faults is not None:
+                    chaos.append(ChaosClusterClient(
+                        kube_client, FaultPlan(seed=0, **faults),
+                        clock=clock))
+                    kube_client = chaos[0]
+                t0 = time.perf_counter()
+                with SeedSpans() as spans:
+                    watching = start_watch_client(kube_client, cfg, clock)
+                timing["list"] = time.perf_counter() - t0
+                timing["spans"] = spans.line()
+                return watching
 
-        fk.reset_launch_counts()
-        try:
-            records = testing.run_kube(
-                stub, ticks, kube_cls=KubeClusterClient, start_watching=start,
-                clock=clock, make_rescheduler=make, on_ready=seed_mirror)
-        finally:
-            stub.close()
-        launches = dict(fk.LAUNCHES)
-        for k, v in launches.items():
-            totals[k] += v
-        for line in lines:
-            log(line + f" on {kind} [{card}]")
-        check_records(name, records, want)
-        check_observe_path(name, seen, packs, "kube")
-        check(launches["B1"] > 0 and launches["B2"] > 0,
-              f"{name}: B1/B2 not launched on the kube path {launches}")
-        log(f"[7] {name} (config {config_id}, {ticks} ticks, schedule_horizon="
-            f"{horizon}): stub encoded {n_pods} pods in "
-            f"{encode_s:.1f} s; start_watch_client LIST + decode "
-            f"{timing['list'] * 1e3:.1f} ms, ColumnarFeed seed "
-            f"{timing['feed'] * 1e3:.1f} ms; every tick's drain, evicted pod "
-            f"UIDs and skip == the JAX package's through the same stub "
-            f"({sum(len(rec['evicted']) for rec in records)} pods evicted); "
-            f"planned from {sorted(set(seen))}; launches {launches}; "
-            f"planner_fallback_total="
-            f"{int(metrics.robustness_snapshot()['planner_fallback'])} on "
-            f"{kind} [{card}]")
+            def seed_mirror(watching, py_pack=py_pack, run=run):
+                check(hasattr(watching, "columnar_store"),
+                      f"{run}: the watch caches did not sync; the CLI fell "
+                      f"back to polling")
+                pods = next(w for w in watching._watchers
+                            if w.list_path == "/api/v1/pods").store
+                kinds = {type(v).__name__ for _, v in pods.snapshot_items()}
+                check(kinds == {"PodView"},
+                      f"{run}: the seeded store holds {sorted(kinds)}")
+                check(counts["pods"] > before["pods"]
+                      and counts["nodes"] > before["nodes"],
+                      f"{run}: the seed did not decode natively")
+                (packed, timing["feed"], timing["pack"],
+                 timing["feed_spans"]) = mirror_pack(watching, cfg)
+                check(counts["bulk"] == before["bulk"] + 1,
+                      f"{run}: the feed did not seed in one bulk pass")
+                if py_pack is not None:
+                    check(same_pack(np, packed, py_pack),
+                          f"{run}: the native mirror's pack != the Python "
+                          f"mirror's")
+
+            watchers = []
+
+            def make(watching, lines=lines, packs=packs, run=run):
+                watchers.extend(watching._watchers)
+                r = Rescheduler(watching, planner, cfg, clock=clock,
+                                recorder=watching)
+                tick = r.tick
+
+                def timed_tick():
+                    t0 = time.perf_counter()
+                    res = tick()
+                    torch.cuda.synchronize()
+                    tick_ms = (time.perf_counter() - t0) * 1e3
+                    trace = (flight.last_tick() or {}).get("trace", {})
+                    packs.extend(sp.get("attrs", {}).get("source") for sp in
+                                 walk_spans(trace)
+                                 if sp["name"] == "plan.pack")
+                    lines.append(tick_line(7, run, len(lines) + 1, tick_ms,
+                                           trace, list(res.drained)))
+                    return res
+
+                r.tick = timed_tick
+                return r
+
+            fk.reset_launch_counts()
+            try:
+                records = testing.run_kube(
+                    stub, ticks, kube_cls=KubeClusterClient,
+                    start_watching=start, clock=clock, make_rescheduler=make,
+                    on_ready=seed_mirror)
+            finally:
+                stub.close()
+            launches = dict(fk.LAUNCHES)
+            for k, v in launches.items():
+                totals[k] += v
+            for line in lines:
+                log(line + f" on {kind} [{card}]")
+            check_records(run, records, want)
+            check_observe_path(run, seen, packs, "kube")
+            check(launches["B1"] > 0 and launches["B2"] > 0,
+                  f"{run}: B1/B2 not launched on the kube path {launches}")
+            seeds = {"nodes": 0, "pods": 0}
+            for w in watchers:
+                for res in seeds:
+                    if w.list_path == f"/api/v1/{res}":
+                        seeds[res] += w.relist_count
+            native = {res: counts[res] - before[res] for res in seeds}
+            check(native == seeds,
+                  f"{run}: LISTs {seeds} but native decodes {native}")
+            extra = ""
+            if faults is not None:
+                relists = sum(w.relist_count for w in watchers) - len(watchers)
+                check(relists >= 1 and chaos[0].stats["watch_410"] >= 1,
+                      f"{run}: no re-list under the watch faults "
+                      f"({dict(chaos[0].stats)})")
+                extra = (f"; faults injected {dict(chaos[0].stats)}, "
+                         f"{relists} re-lists, every node and pod LIST "
+                         f"decoded natively ({native})")
+            else:
+                extra = (f"; Python seed: LIST + decode "
+                         f"{timing['py_list'] * 1e3:.1f} ms ({py_spans.line()})"
+                         f", per-pod feed "
+                         f"{timing['py_feed'] * 1e3:.1f} ms "
+                         f"({timing['py_feed_spans']}; first pack "
+                         f"{timing['py_pack'] * 1e3:.1f} ms); the two "
+                         f"mirrors' packs bit-identical; native store all "
+                         f"PodView")
+            log(f"[7] {run} (config {config_id}, {ticks} ticks, "
+                f"schedule_horizon={horizon}): stub encoded {n_pods} pods in "
+                f"{encode_s:.1f} s; native seed: start_watch_client LIST + "
+                f"decode {timing['list'] * 1e3:.1f} ms ({timing['spans']}), "
+                f"ColumnarFeed bulk "
+                f"seed {timing['feed'] * 1e3:.1f} ms ({timing['feed_spans']}"
+                f"; first pack "
+                f"{timing['pack'] * 1e3:.1f} ms){extra}; every tick's "
+                f"drain, evicted pod UIDs and skip == the JAX package's "
+                f"through the same stub "
+                f"({sum(len(rec['evicted']) for rec in records)} pods "
+                f"evicted); planned from {sorted(set(seen))}; launches "
+                f"{launches}; planner_fallback_total="
+                f"{int(metrics.robustness_snapshot()['planner_fallback'])} "
+                f"on {kind} [{card}]")
+
+    chaos_frozen = testing.load_chaos()
+    for name, config_id, ticks, horizon in testing.POLL_RUNS:
+        want = chaos_frozen["poll"][name]
+        spec = CONFIGS[config_id]
+        cfg = testing.controller_config(ReschedulerConfig, spec, horizon,
+                                        "kube")
+        for native in (True, False):
+            run = f"{name} ({'native' if native else 'Python'} decoders)"
+            client = generate_cluster(spec, chaos_frozen["seed"])
+            check(testing.cluster_digest(client) == want["digest"],
+                  f"{run}: generated cluster digest != frozen")
+            stub = testing.StubApiServer.from_cluster(client)
+            planner = TorchSolverPlanner(cfg, device="cuda")
+            seen = testing.track_observations(planner)
+            clock = FakeClock()
+            kc = KubeClusterClient(stub.url)
+            kc.use_native_ingest = native
+            lines, gets = [], []
+            before = dict(counts)
+
+            def make(c, lines=lines, gets=gets, run=run):
+                r = Rescheduler(c, planner, cfg, clock=clock, recorder=c)
+                tick = r.tick
+
+                def timed_tick():
+                    t0 = time.perf_counter()
+                    res = tick()
+                    torch.cuda.synchronize()
+                    tick_ms = (time.perf_counter() - t0) * 1e3
+                    trace = (flight.last_tick() or {}).get("trace", {})
+                    gets.append(span_sums(trace).get("kube.get", 0.0))
+                    lines.append(tick_line(7, run, len(lines) + 1, tick_ms,
+                                           trace, list(res.drained)))
+                    return res
+
+                r.tick = timed_tick
+                return r
+
+            fk.reset_launch_counts()
+            try:
+                with SeedSpans() as spans:
+                    records = testing.run_kube_ticks(make(kc), stub, None,
+                                                     clock, ticks)
+            finally:
+                stub.close()
+            launches = dict(fk.LAUNCHES)
+            for line in lines:
+                log(line + f" on {kind} [{card}]")
+            check_records(run, records, want)
+            check(seen and set(seen) == {"NodeMap"},
+                  f"{run}: planned from {sorted(set(seen))}")
+            decoded = counts["pods"] - before["pods"]
+            check((decoded >= ticks) if native else decoded == 0,
+                  f"{run}: {decoded} native pod LISTs in {ticks} ticks")
+            check(launches["B1"] > 0 and launches["B2"] > 0,
+                  f"{run}: B1/B2 not launched {launches}")
+            log(f"[7] {run}: polling client, {ticks} ticks == the JAX "
+                f"package's polling run through the same stub; kube.get "
+                f"{', '.join(f'{ms:.1f}' for ms in gets)} ms a tick; in "
+                f"all {spans.line()}; "
+                f"{decoded} native pod LIST decodes; launches {launches} on "
+                f"{kind} [{card}]")
     check(metrics.robustness_snapshot()["planner_fallback"] == fallbacks0,
           "the planner-fallback counter moved during the kube runs")
 
@@ -1436,6 +1752,10 @@ def service_phase(np, torch, fk, kind, card, here):
             check(np.array_equal(np.asarray(reply.steps),
                                  np.asarray(frozen[name]["schedule"])),
                   f"{name}: {horizon}-step schedule != the JAX package's")
+        # ---- the same fleet under the service fault layer --------------
+        chaos_launches = service_chaos_phase(np, fk, kind, card, tenants,
+                                             frozen)
+        fallback0 = metrics.service_snapshot()["remote_planner_fallback"]
         # ---- controller ticks of every agent through the service -------
         ruled = [Rescheduler(client, agent, cfg, clock=client.clock,
                              recorder=client)
@@ -1591,7 +1911,344 @@ def service_phase(np, torch, fk, kind, card, here):
             f"service's path, on {kind} [{card}]")
     fk.LAUNCHES.update(saved)
     cli_phase(here, kind, card)
-    return launches, rows
+    return launches, rows, chaos_launches
+
+
+def service_chaos_phase(np, fk, kind, card, tenants, frozen):
+    """Phase 8 under the service fault layer: the fleet of
+    ``service_phase`` (``tenants``: its fresh clusters, before their
+    ticks) plans through a new ``ServiceServer`` on the card, every
+    agent's transport under ``ServiceFaultPlan.profile("light", 0)``
+    (``--service-chaos-profile light``). Released together, every
+    selection must equal the no-chaos frozen answer (``frozen``; an
+    agent that falls back plans on the numpy oracle, which gives the
+    same rows). Then one agent drives the device-health watchdog through
+    a scripted ``ServiceChaos``: a sick phase (extra solve latency on
+    the service clock) must flip it (gauge, ``/healthz``, flight
+    ``device-sick``) and one scripted solve error must fail its batch
+    typed, not end the service; healthy probes on the card recover it.
+    Then the fleet again. Zero agent crashes, the flight recorder's
+    deltas equal the metrics', and no batch leaves the card. Returns the
+    launches of this path (the caller's counts are restored)."""
+    import threading
+
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.io.synthetic import CONFIGS
+    from k8s_spot_rescheduler_tpu_torch.loop import flight
+    from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
+    from k8s_spot_rescheduler_tpu_torch.service.agent import RemotePlanner
+    from k8s_spot_rescheduler_tpu_torch.service.chaos import (
+        ChaosAgentTransport,
+        ServiceChaos,
+        ServiceFaultPlan,
+    )
+    from k8s_spot_rescheduler_tpu_torch.service.devhealth import (
+        DeviceHealthWatchdog,
+    )
+    from k8s_spot_rescheduler_tpu_torch.service.server import ServiceServer
+    from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
+
+    n = len(tenants)
+    spec0 = CONFIGS[testing.SERVICE_TENANTS[0][1]]
+    server = ServiceServer(
+        testing.service_config(ReschedulerConfig, spec0,
+                               service_resync_ingest_cap=n),
+        "127.0.0.1:0", batch_window_s=0.25, device="cuda")
+    server.start_background()
+    svc = server.service
+    url = f"http://{server.address}"
+    f0, m0 = flight.RECORDER.counts(), metrics.service_snapshot()
+    saved = dict(fk.LAUNCHES)
+    fk.reset_launch_counts()
+    log0 = len(svc.batch_log)
+    crashes = []
+    try:
+        agents = []
+        for name, cfg, client, _, _ in tenants:
+            cfg = dataclasses.replace(
+                cfg, planner_url=url, service_chaos_profile="light",
+                service_chaos_seed=0)
+            agent = RemotePlanner(cfg, tenant=name)
+            check(isinstance(agent.transport, ChaosAgentTransport),
+                  f"{name}: the agent's transport is not under chaos")
+            store = client.columnar_store(
+                cfg.resources, on_demand_label=cfg.on_demand_node_label,
+                spot_label=cfg.spot_node_label)
+            agents.append((name, agent, store, client.list_pdbs()))
+        solvers = []
+
+        def plan_check(i):
+            name, agent, store, pdbs = agents[i]
+            report = agent.plan(store, pdbs)
+            want = frozen[name]["row"]
+            got_found = report.plan is not None
+            check(got_found == bool(want[1])
+                  and report.n_feasible == want[2]
+                  and (not got_found
+                       or report.plan.candidate_index == want[0]),
+                  f"{name}: selection under service chaos "
+                  f"({report.solver}) != the no-chaos frozen answer")
+            if got_found:
+                _, meta = agent._pack_observation(store, pdbs)
+                plan = meta.build_plan(want[0], np.asarray(want[3:]))
+                check(dict(report.plan.assignments) == dict(plan.assignments),
+                      f"{name}: assignments under service chaos != frozen")
+            solvers.append(report.solver)
+
+        def fleet_round():
+            gate = threading.Barrier(n)
+
+            def run(i):
+                try:
+                    gate.wait(timeout=60)
+                    plan_check(i)
+                except BaseException as err:  # noqa: BLE001 — reported below
+                    crashes.append(err)
+
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            check(not crashes and all(not t.is_alive() for t in threads),
+                  f"an agent crashed under service chaos: {crashes}")
+
+        t0 = time.perf_counter()
+        fleet_round()
+        first_s = time.perf_counter() - t0
+        # the watchdog choreography, one agent (one tenant a batch):
+        # the shape's first solve, then the calibration samples
+        for _ in range(2 * DeviceHealthWatchdog.CALIBRATION_BATCHES + 2):
+            plan_check(0)
+            if svc.healthz_snapshot()["device"] == "ok":
+                break
+        check(svc.healthz_snapshot()["device"] == "ok",
+              "the watchdog did not calibrate")
+        threshold = svc.config.device_sick_threshold
+        svc.chaos = ServiceChaos(ServiceFaultPlan(
+            seed=0, sick_phase=(1, threshold, 0.3),
+            solve_error_script=(threshold + 1,)), clock=svc.clock)
+        states, errors0 = [], m0["requests"].get("error", 0)
+        for _ in range(40):
+            plan_check(0)
+            states.append(svc.healthz_snapshot()["device"])
+            if svc.chaos.stats["solve_error"] and states[-1] == "ok":
+                break
+        check("sick" in states and states[-1] == "ok",
+              f"the watchdog did not flip and recover: {states}")
+        check(svc.chaos.stats["solve_error"] == 1
+              and svc.chaos.stats["sick_latency"] == threshold,
+              f"service chaos injected {dict(svc.chaos.stats)}")
+        check(svc.fatal is None, "the scripted solve error ended the service")
+        t0 = time.perf_counter()
+        fleet_round()
+        last_s = time.perf_counter() - t0
+        m1, f1 = metrics.service_snapshot(), flight.RECORDER.counts()
+    finally:
+        server.close()
+    launches = dict(fk.LAUNCHES)
+    fk.LAUNCHES.update(saved)
+    batches = list(svc.batch_log)[log0:]
+    injected = {}
+    for _, agent, _, _ in agents:
+        for k, v in agent.transport.stats.items():
+            injected[k] = injected.get(k, 0) + v
+
+    def fdelta(kind_):
+        return f1.get(kind_, 0) - f0.get(kind_, 0)
+
+    fallback = m1["remote_planner_fallback"] - m0["remote_planner_fallback"]
+    failover = m1["remote_planner_failover"] - m0["remote_planner_failover"]
+    check(fdelta("remote-planner-fallback") == fallback
+          and fdelta("failover") == failover
+          and fdelta("device-sick") == 1 and fdelta("device-recovered") == 1
+          and m1["device_sick"] == 0,
+          f"flight deltas != metric deltas: fallback {fallback} / "
+          f"{fdelta('remote-planner-fallback')}, failover {failover} / "
+          f"{fdelta('failover')}, device-sick {fdelta('device-sick')}, "
+          f"recovered {fdelta('device-recovered')}")
+    check(batches and not [b for b in batches if b["path"] == "host"],
+          "a batch was served off the card under service chaos")
+    errors = int(m1["requests"].get("error", 0) - errors0)
+    check(errors >= 1, "the scripted solve error failed no request")
+    check(launches["B1t"] > 0 and launches["B2t"] > 0,
+          f"B1t/B2t not launched under service chaos {launches}")
+    log(f"[8] under the service fault layer (agents "
+        f"--service-chaos-profile light, seed 0, on the fleet's fresh "
+        f"clusters): every selection of {len(solvers)} plans == the "
+        f"no-chaos frozen answer ({solvers.count('remote')} remote, "
+        f"{solvers.count('remote-fallback')} local fallbacks); faults "
+        f"injected on the agents {injected}; fleet rounds {first_s:.1f} / "
+        f"{last_s:.1f} s; the sick phase ({threshold} batches +0.3 s) "
+        f"flipped the watchdog and {DeviceHealthWatchdog.RECOVERY_PROBES} "
+        f"healthy probes on the card recovered it ({' '.join(states)}); the "
+        f"scripted solve error failed {errors} request(s) typed and the "
+        f"service kept serving; 0 crashes; flight == metrics (fallback "
+        f"{fallback}, failover {failover}, device-sick 1, recovered 1); "
+        f"{len(batches)} batches, none on the host; launches {launches} "
+        f"({len(batches)} batches) on "
+        f"{kind} [{card}]")
+    return launches
+
+
+def chaos_phase(np, torch, fk, kind, card, here):
+    """Phase 9: the controller on the card under the kube fault layer
+    (``io/chaos``), against the JAX package's frozen runs
+    (``data/chaos_seed0.json``): ``testing.CHAOS_RUNS`` through a
+    ``ChaosClusterClient`` under ``FaultPlan.profile("heavy", 0)``, the
+    mid-drain crash and its restart, both with ``TorchSolverPlanner`` on
+    cuda, tick by tick (drain, evicted pod UIDs, skip, robustness
+    counter deltas, faults injected), each tick's latency and split
+    printed; then the CLI with ``testing.CHAOS_CLI_ARGS`` as a
+    subprocess. The fallback planner counter must move as the JAX
+    run's did (not at all): the fault layer breaks the client, not the
+    planner. Returns the launches of the in-process runs."""
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.io.chaos import (
+        ChaosClusterClient,
+        FaultPlan,
+    )
+    from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
+        CONFIGS,
+        generate_cluster,
+    )
+    from k8s_spot_rescheduler_tpu_torch.loop import flight
+    from k8s_spot_rescheduler_tpu_torch.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
+    from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
+        TorchSolverPlanner,
+    )
+    from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
+
+    frozen = testing.load_chaos()
+    seed = frozen["seed"]
+    fallback0 = metrics.robustness_snapshot()["planner_fallback"]
+    want_fallbacks = sum(
+        rec["counters"]["planner_fallback"]
+        for run in [*frozen["runs"].values(), frozen["crash"]]
+        for rec in run["records"])
+    fk.reset_launch_counts()
+
+    def timed(r, run, lines, seen_packs):
+        tick = r.tick
+
+        def timed_tick():
+            t0 = time.perf_counter()
+            res = tick()
+            torch.cuda.synchronize()
+            tick_ms = (time.perf_counter() - t0) * 1e3
+            trace = (flight.last_tick() or {}).get("trace", {})
+            seen_packs.extend(sp.get("attrs", {}).get("source") for sp in
+                              walk_spans(trace) if sp["name"] == "plan.pack")
+            lines.append(tick_line(9, run, len(lines) + 1, tick_ms, trace,
+                                   list(res.drained))
+                         + (f" (skipped {res.skipped})" if res.skipped
+                            else ""))
+            return res
+
+        r.tick = timed_tick
+        return r
+
+    for name, config_id, ticks in testing.CHAOS_RUNS:
+        want = frozen["runs"][name]
+        spec = CONFIGS[config_id]
+        client = generate_cluster(spec, seed, reschedule_evicted=True)
+        check(testing.cluster_digest(client) == want["digest"],
+              f"{name}: generated cluster digest != frozen")
+        cfg = testing.controller_config(ReschedulerConfig, spec,
+                                        testing.CHAOS_HORIZON, "columnar")
+        planner = TorchSolverPlanner(cfg, device="cuda")
+        seen = testing.track_observations(planner)
+        chaos = ChaosClusterClient(client, FaultPlan.profile("heavy", seed),
+                                   clock=client.clock)
+        lines, packs = [], []
+        r = timed(Rescheduler(chaos, planner, cfg, clock=client.clock,
+                              recorder=chaos), name, lines, packs)
+        records = testing.chaos_ticks(r, chaos, ticks,
+                                      metrics.robustness_snapshot)
+        for line in lines:
+            log(line + f" on {kind} [{card}]")
+        for i, (got, exp) in enumerate(zip(records, want["records"])):
+            check(got == exp, f"{name} tick {i + 1}: {got} != the JAX "
+                              f"package's {exp}")
+        check(len(records) == len(want["records"]), f"{name}: tick count")
+        stats = dict(sorted(chaos.stats.items()))
+        check(stats == want["stats"],
+              f"{name}: faults injected {stats} != the JAX run's "
+              f"{want['stats']}")
+        check(set(seen) <= {"NodeMap"} and set(packs) <= {"objects"},
+              f"{name}: chaos did not force the object path ({set(seen)})")
+        log(f"[9] {name} (config {config_id}, {ticks} ticks, heavy, seed "
+            f"{seed}, objects): every tick's drain, evicted pod UIDs, skip "
+            f"and counter deltas == the JAX package's; faults {stats} == "
+            f"the JAX run's on {kind} [{card}]")
+
+    want = frozen["crash"]
+    spec = CONFIGS[testing.CRASH_CONFIG]
+    client = generate_cluster(spec, seed, reschedule_evicted=True)
+    check(testing.cluster_digest(client) == want["digest"],
+          "crash: generated cluster digest != frozen")
+    cfg = testing.controller_config(ReschedulerConfig, spec,
+                                    testing.CHAOS_HORIZON, "columnar")
+    chaos = ChaosClusterClient(client, FaultPlan(seed=seed,
+                                                 interrupt_on_taint=1),
+                               clock=client.clock)
+    lines, packs = [], []
+    t0 = time.perf_counter()
+    got = testing.crash_run(
+        client, chaos,
+        lambda c: timed(Rescheduler(c, TorchSolverPlanner(cfg, device="cuda"),
+                                    cfg, clock=client.clock, recorder=c),
+                        "crash", lines, packs),
+        testing.CRASH_TICKS, metrics.robustness_snapshot)
+    crash_s = time.perf_counter() - t0
+    for line in lines:
+        log(line + f" on {kind} [{card}]")
+    for key in ("crashed", "orphaned", "evicted_before_restart", "healed",
+                "tainted_after_restart"):
+        check(got[key] == want[key],
+              f"crash: {key} {got[key]} != the JAX package's {want[key]}")
+    for i, (g, w) in enumerate(zip(got["records"], want["records"])):
+        check(g == w, f"crash: restarted tick {i + 1} {g['drained']} != the "
+                      f"JAX package's {w['drained']}")
+    check(len(got["records"]) == len(want["records"]), "crash: tick count")
+    log(f"[9] mid-drain crash (config {testing.CRASH_CONFIG}, "
+        f"interrupt_on_taint=1): ChaosInterrupt after tainting "
+        f"{got['orphaned']}, nothing evicted; the restarted controller "
+        f"healed {got['healed']} orphaned taint at start-up and drained "
+        f"{[rec['drained'] for rec in got['records']]} == the JAX "
+        f"package's ({crash_s:.1f} s in all) on {kind} [{card}]")
+    launches = dict(fk.LAUNCHES)
+    fallbacks = metrics.robustness_snapshot()["planner_fallback"] - fallback0
+    check(fallbacks == want_fallbacks,
+          f"the fallback planner ran {fallbacks} times, the JAX runs "
+          f"{want_fallbacks}")
+    check(launches["B1"] > 0 and launches["B2"] > 0,
+          f"B1/B2 not launched under the kube fault layer {launches}")
+
+    want = frozen["cli"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_spot_rescheduler_tpu_torch",
+         *testing.CHAOS_CLI_ARGS],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+        text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"chaos CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    ticks = re.findall(r"(tick \d+: .*)$", proc.stderr, re.M)
+    check(ticks == want["ticks"],
+          f"chaos CLI ticked {ticks}, the JAX package's CLI {want['ticks']}")
+    fallback_lines = re.findall(r"planner_fallback_total=(\d+)", proc.stderr)
+    check(fallback_lines == ["0"],
+          f"chaos CLI planner_fallback_total {fallback_lines}")
+    log(f"[9] python -m k8s_spot_rescheduler_tpu_torch "
+        f"{' '.join(testing.CHAOS_CLI_ARGS)}: exit 0 in {cli_s:.1f} s, "
+        f"{' | '.join(ticks)} == the JAX package's CLI, "
+        f"planner_fallback_total=0; in-process launches {launches}, "
+        f"planner_fallback {fallbacks} == the JAX runs' on {kind} [{card}]")
+    return launches
 
 
 def cli_phase(here, kind, card):
@@ -1694,6 +2351,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"[time] phase {name}: {now - t_phase[0]:.1f} s (at "
+            f"{now - t_start:.1f} s)")
+        t_phase[0] = now
 
     # ---- phase 1: card and build --------------------------------------
     card = card_line()
@@ -1720,6 +2384,7 @@ def main() -> int:
                 f"{min(regs)}-{max(regs)} registers, at most "
                 f"{max(spills, default=0)} B of spill stores")
 
+    phase_done("1 (card, build)")
     data = os.path.join(here, "k8s_spot_rescheduler_tpu_torch", "data")
     host3, ans3 = load_npz(os.path.join(data, "config3_seed0.npz"))
     host4, ans4 = load_npz(os.path.join(data, "config4_seed0.npz"))
@@ -1817,6 +2482,7 @@ def main() -> int:
             f"{plain_ms:.4f} ms plain, bound {bound_ms:.6f} ms ({bound_by}) "
             f"on {kind} [{card}]")
 
+    phase_done("2 (kernels against plain)")
     # ---- phase 3: the tick against the JAX package's frozen answers ---
     planner = TorchSolverPlanner(device="cuda")
     fk.reset_launch_counts()
@@ -1914,21 +2580,29 @@ def main() -> int:
         f"{sched_s * 1e3:.3f} ms); fetches_total={planner.fetches_total}; "
         f"host clock around synced fetches, on {kind} [{card}]")
 
+    phase_done("3 (the planning tick)")
     log(contended_phase(np, torch, fk, hostc, ansc, kind, card))
+    phase_done("4 (contended)")
     stream_launches = stream_phase(
         np, torch, fk, timings, kind, card,
         (("config 3", host3, ans3), ("config 4", host4, ans4),
          ("contended", hostc, ansc)),
     )
 
+    phase_done("5 (streamed union)")
     tick_launches, tick_timings = controller_phase(
         np, torch, fk, kind, card, here)
     # B1/B2's row: the path whose launches it counts, timed on its pack
     timings.update(tick_timings)
-    kube_launches = kube_phase(torch, fk, kind, card, here)
-    service_launches, service_rows = service_phase(np, torch, fk, kind, card,
-                                                   here)
+    phase_done("6 (controller)")
+    kube_launches = kube_phase(np, torch, fk, kind, card, here)
+    phase_done("7 (kube path)")
+    service_launches, service_rows, service_chaos_launches = service_phase(
+        np, torch, fk, kind, card, here)
+    phase_done("8 (planner service)")
+    chaos_launches = chaos_phase(np, torch, fk, kind, card, here)
 
+    phase_done("9 (controller under chaos)")
     # the main path: the controller tick observing through the mirror,
     # fed by the fake cluster (phase 6) and by the watch (phase 7)
     mirror = {k: tick_launches["columnar"][k] + kube_launches[k]
@@ -1952,12 +2626,16 @@ def main() -> int:
                 tick_launches["objects"][name],
             "planning tick (phase 3)": main_launches[name],
             "streamed union": stream_launches[name],
+            "controller under the kube fault layer (phase 9)":
+                chaos_launches[name],
         }
         out.append(row)
     for name in ("B1t", "B2t"):
         row = dict(service_rows[name])
         row["launches_by_path"] = {
-            "planner service batch (phase 8)": service_launches[name]}
+            "planner service batch (phase 8)": service_launches[name],
+            "planner service under the service fault layer (phase 8)":
+                service_chaos_launches[name]}
         out.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -22,14 +22,21 @@ when it ends. Their knobs: ``--planner-timeout``,
 ``--service-{drain-grace,state-dir,batch-window,queue-timeout,
 resync-ingest-cap,resync-ingest-budget}``.
 
+On a live apiserver, node and pod LISTs decode in one native pass
+(``io/native_ingest``) unless ``--resources`` names a resource its
+schema does not carry. The seeded fault layers: ``--chaos-profile``/
+``--chaos-seed``/``--chaos-watch-stall-rate`` wrap the cluster client in
+``io/chaos.ChaosClusterClient`` (on kube under the watch cache, so its
+streams pass the fault layer), and ``--service-chaos-profile``/
+``--service-chaos-seed`` arm ``service/chaos.py`` on the agent's
+transport and in the service's batch window — testing only.
+
 Not in the parser yet, so argparse refuses them, each with the later
-slice that brings it: the chaos profiles (``--chaos-*`` with
-``io/chaos`` and ``--service-chaos-*`` with ``service/chaos.py``: the
-bench's fault profiles, ROADMAP Queue 1 item 5), the mesh and memory
-ladder (``--mesh-shape``, ``--auto-shard``, ``--solver-hbm-budget``,
-``--carry-chunks``: multiple GPUs, item 7), ``--debug-endpoints`` and
-``--trace-dir`` (the helpers, item 8) and the JAX-only
-``--jax-cache-dir``, which goes.
+slice that brings it: the mesh and memory ladder (``--mesh-shape``,
+``--auto-shard``, ``--solver-hbm-budget``, ``--carry-chunks``: multiple
+GPUs, ROADMAP Queue 1 item 7), ``--debug-endpoints`` and
+``--trace-dir`` (the helpers, item 8); the JAX-only
+``--jax-cache-dir`` goes.
 
 Run e.g.::
 
@@ -38,6 +45,8 @@ Run e.g.::
         --device cpu --no-metrics-server --node-drain-delay 1s
     python -m k8s_spot_rescheduler_tpu_torch --cluster kube:http://127.0.0.1:8080 \
         --ticks 2 --housekeeping-interval 2s --node-drain-delay 1s
+    python -m k8s_spot_rescheduler_tpu_torch --cluster synthetic:1 --ticks 3 \
+        --device cpu --no-metrics-server --chaos-profile light
     python -m k8s_spot_rescheduler_tpu_torch --serve 127.0.0.1:8642 \
         --device cpu --no-metrics-server
     python -m k8s_spot_rescheduler_tpu_torch --cluster synthetic:1 --ticks 3 \
@@ -165,6 +174,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on startup and each tick, remove ToBeDeleted "
                         "taints no active drain owns (crash-safe drain "
                         "recovery; the reference leaves them for CA)")
+    from k8s_spot_rescheduler_tpu_torch.io.chaos import FaultPlan as _FaultPlan
+
+    p.add_argument("--chaos-profile", default=d.chaos_profile,
+                   choices=list(_FaultPlan.PROFILES),
+                   help="wrap the cluster client in the seeded "
+                        "fault-injection layer (io/chaos.py) — "
+                        "testing/demo only, never production")
+    p.add_argument("--chaos-seed", type=int, default=d.chaos_seed,
+                   help="seed of the chaos fault stream (deterministic)")
+    p.add_argument("--chaos-watch-stall-rate", type=float,
+                   default=d.chaos_watch_stall_rate,
+                   help="per-stream-open probability an injected chaos "
+                        "watch stream is open but silent until the read "
+                        "timeout; mixed into the selected --chaos-profile")
     p.add_argument("--watch-progress-deadline", default="2m",
                    help="kill and reconnect a watch stream that delivers "
                         "no event, bookmark, or clean close for this "
@@ -218,6 +241,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--serve mode: persist per-tenant pack "
                         "fingerprints + the bucket warmup list here "
                         "(warm restart; empty = cold restarts)")
+    from k8s_spot_rescheduler_tpu_torch.service.chaos import (
+        ServiceFaultPlan as _ServiceFaultPlan,
+    )
+
+    p.add_argument("--service-chaos-profile",
+                   default=d.service_chaos_profile,
+                   choices=list(_ServiceFaultPlan.PROFILES),
+                   help="seeded fault injection on the planner-service "
+                        "path (service/chaos.py): wire faults on the "
+                        "agent transport, solve/decode faults in the "
+                        "service — testing/demo only, never production")
+    p.add_argument("--service-chaos-seed", type=int,
+                   default=d.service_chaos_seed,
+                   help="seed of the service chaos fault stream "
+                        "(deterministic)")
     p.add_argument("--service-batch-window",
                    default=f"{d.service_batch_window:g}s",
                    help="--serve mode: how long the batching scheduler "
@@ -340,6 +378,9 @@ def config_from_args(args) -> ReschedulerConfig:
         breaker_threshold=args.breaker_threshold,
         breaker_max_interval=parse_duration(args.breaker_max_interval),
         reconcile_orphaned_taints=args.reconcile_orphaned_taints,
+        chaos_profile=args.chaos_profile,
+        chaos_seed=args.chaos_seed,
+        chaos_watch_stall_rate=args.chaos_watch_stall_rate,
         watch_progress_deadline=parse_duration(args.watch_progress_deadline),
         mirror_staleness_budget=parse_duration(args.mirror_staleness_budget),
         resync_interval=parse_duration(args.resync_interval),
@@ -350,6 +391,8 @@ def config_from_args(args) -> ReschedulerConfig:
         device_sick_threshold=args.device_sick_threshold,
         service_drain_grace=parse_duration(args.service_drain_grace),
         service_state_dir=args.service_state_dir,
+        service_chaos_profile=args.service_chaos_profile,
+        service_chaos_seed=args.service_chaos_seed,
         service_batch_window=parse_duration(args.service_batch_window),
         service_queue_timeout=parse_duration(args.service_queue_timeout),
         service_resync_ingest_cap=args.service_resync_ingest_cap,
@@ -388,6 +431,26 @@ def main(argv=None) -> int:
         TorchSolverPlanner,
     )
 
+    def chaos_wrap(c, clk):
+        import dataclasses
+
+        from k8s_spot_rescheduler_tpu_torch.io.chaos import (
+            ChaosClusterClient,
+            FaultPlan,
+        )
+
+        log.info(
+            "CHAOS: fault injection enabled (profile=%s seed=%d) — "
+            "testing mode, not production",
+            config.chaos_profile, config.chaos_seed,
+        )
+        plan = FaultPlan.profile(config.chaos_profile, config.chaos_seed)
+        if config.chaos_watch_stall_rate > 0:
+            plan = dataclasses.replace(
+                plan, watch_stall_rate=config.chaos_watch_stall_rate
+            )
+        return ChaosClusterClient(c, plan, clock=clk)
+
     elector = None
     if args.cluster.startswith("synthetic:"):
         from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
@@ -411,6 +474,8 @@ def main(argv=None) -> int:
         # the demo always runs on the fake cluster's virtual clock — pod
         # termination timers live on it
         clock = client.clock
+        if config.chaos_profile:
+            client = chaos_wrap(client, clock)
     elif args.cluster == "kube" or args.cluster.startswith("kube:"):
         from k8s_spot_rescheduler_tpu_torch.io.kube import (
             KubeClusterClient,
@@ -432,7 +497,18 @@ def main(argv=None) -> int:
         # transient-read retry policy (io/kube.py backoff loop)
         client.retry_max = config.kube_retry_max
         client.retry_base = config.kube_retry_base
+        from k8s_spot_rescheduler_tpu_torch.io import native_ingest
+
+        # the native LIST decoder only carries the standard resources;
+        # exotic --resources must flow through the Python decoders
+        client.use_native_ingest = native_ingest.supports(config.resources)
         clock = RealClock()
+        if config.chaos_profile:
+            # wrapped UNDER the watch cache (below), so the watch
+            # threads' streams traverse the chaos _stream hook (drop
+            # injection) and writes/get_pod are faulted; the lease
+            # elector's _request plumbing passes through untouched
+            client = chaos_wrap(client, clock)
         if args.leader_elect:
             from k8s_spot_rescheduler_tpu_torch.io.lease import LeaseElector
 

@@ -17,11 +17,12 @@ The read path is polling LISTs rather than watch caches: one LIST of all
 pods per tick (partitioned by node client-side) replaces the reference's
 N per-node LISTs — fewer round trips at 5k-node scale, same data.
 
-The port of the JAX package's ``io/kube.py``. LIST bodies decode through
-the Python decoders below: the native LIST decoder
-(``io/native_ingest``) is not ported yet, so ``use_native_ingest`` is
-False and there is no raw-bytes read path. Each read is one ``kube.get``
-span of ``utils/tracing``.
+The port of the JAX package's ``io/kube.py``. Node and pod LISTs decode
+in one native pass (``io/native_ingest``, into lazy views) while
+``use_native_ingest`` is set and the library is available; else, and
+for every other read, through the Python decoders below, which stay the
+semantic reference. Each read is one ``kube.get`` span of
+``utils/tracing``.
 """
 
 from __future__ import annotations
@@ -744,9 +745,9 @@ class KubeClusterClient:
         # silently dropping its pods from spread/zone presence (the
         # permissive direction; advisor r4)
         self._nodes_cache: Optional[tuple] = None
-        # native LIST decoding (io/native_ingest.py in the JAX package)
-        # is not ported: every LIST decodes through the Python decoders
-        self.use_native_ingest = False
+        # native LIST decoding (io/native_ingest.py); the CLI clears this
+        # when the configured resources exceed the native schema
+        self.use_native_ingest = True
 
     # --- plumbing ---
 
@@ -849,6 +850,18 @@ class KubeClusterClient:
                 payload = resp.read()
         return json.loads(payload) if payload else {}
 
+    def _request_raw(self, method: str, path: str) -> bytes:
+        """Raw response bytes — the native ingest engine parses LIST
+        bodies itself (io/native_ingest.py). Reads only: the retrying
+        path must never carry a write verb (a retried write double-fires
+        its side effect on a timeout whose request actually landed)."""
+        if method != "GET":
+            raise ValueError(
+                f"_request_raw is read-only; {method} must go through "
+                "_request"
+            )
+        return self._read_retrying("GET", path, timeout=60)
+
     def _stream(self, path: str, read_timeout: float = 330.0):
         """Yield newline-delimited JSON objects from a watch endpoint.
 
@@ -878,8 +891,18 @@ class KubeClusterClient:
         between the two reads can never vanish from both views (and the
         heaviest LIST is paid once, not twice)."""
         if self._nodes_cache is None:
-            items = self._request("GET", "/api/v1/nodes").get("items", [])
-            nodes = [decode_node(o) for o in items]
+            from k8s_spot_rescheduler_tpu_torch.io import native_ingest
+
+            nodes = None
+            if self.use_native_ingest and native_ingest.available():
+                batch = native_ingest.parse_node_list(
+                    self._request_raw("GET", "/api/v1/nodes")
+                )
+                if batch is not None:
+                    nodes = batch.views()
+            if nodes is None:
+                items = self._request("GET", "/api/v1/nodes").get("items", [])
+                nodes = [decode_node(o) for o in items]
             self._nodes_cache = (
                 [n for n in nodes if n.ready],
                 [n for n in nodes if not n.ready],
@@ -899,9 +922,25 @@ class KubeClusterClient:
 
     def _all_pods(self) -> Dict[str, List[PodSpec]]:
         if self._pods_cache is None:
-            items = self._request("GET", "/api/v1/pods").get("items", [])
-            pods = [decode_pod(obj) for obj in items]
-            pods = self._resolve_volumes(pods)
+            from k8s_spot_rescheduler_tpu_torch.io import native_ingest
+
+            pods = None
+            pvc_hint = None
+            if self.use_native_ingest and native_ingest.available():
+                batch = native_ingest.parse_pod_list(
+                    self._request_raw("GET", "/api/v1/pods")
+                )
+                if batch is not None:
+                    pods = batch.views()
+                    # exact vectorized "any pod is resolvable" — not just
+                    # "any pod has a PVC", which would send every tick of
+                    # a PVC-carrying cluster through a 50k-view Python
+                    # scan below
+                    pvc_hint = batch.any_pvc_resolvable()
+            if pods is None:
+                items = self._request("GET", "/api/v1/pods").get("items", [])
+                pods = [decode_pod(obj) for obj in items]
+            pods = self._resolve_volumes(pods, pvc_hint)
             cache: Dict[str, List[PodSpec]] = {}
             for pod in pods:
                 cache.setdefault(pod.node_name, []).append(pod)

@@ -24,11 +24,13 @@ freezes the live stores into a per-tick view, so a tick never sees a pod
 on two nodes because an event arrived mid-tick. Writes (evictions, taints,
 events) pass through to the underlying client unchanged.
 
-The port of the JAX package's ``io/watch.py``. Every LIST, seed or
-re-list, decodes through the Python decoders of ``io/kube.py``: the
-native LIST decoder is not ported yet, and with it the native re-list
-and the columnar feed's bulk seeding wait; ``ColumnarFeed`` seeds the
-mirror pod by pod through ``ColumnarStore.add_pod``.
+The port of the JAX package's ``io/watch.py``. A node or pod LIST, seed
+or re-list after a 410 Gone or a dropped stream, decodes in one native
+pass (``io/native_ingest``) into lazy views when the client allows it;
+``ColumnarFeed`` then seeds the empty mirror from that one batch
+(``ColumnarStore.bulk_add_pods``) and falls back to ``add_pod`` per pod
+otherwise. The anti-entropy audit's LIST decodes through the Python
+decoders, the path the mirror's events take.
 """
 
 from __future__ import annotations
@@ -269,11 +271,45 @@ class Watcher(threading.Thread):
 
     # --- protocol steps ---
 
-    def _fetch(self):
-        """One full LIST, decoded: (items dict, resourceVersion). Every
-        LIST decodes through the per-event Python path (the native LIST
-        decoder is not ported), so the anti-entropy audit's items compare
-        field-by-field with the mirror's."""
+    def _native_relist(self):
+        """LIST via the native ingest engine when it applies: returns
+        (items dict keyed by metadata.uid, resourceVersion) or None."""
+        from k8s_spot_rescheduler_tpu_torch.io import native_ingest
+
+        if not getattr(self.client, "use_native_ingest", True):
+            return None
+        if not native_ingest.available():
+            return None
+        parse = {
+            "/api/v1/pods": native_ingest.parse_pod_list,
+            "/api/v1/nodes": native_ingest.parse_node_list,
+        }.get(self.list_path)
+        if parse is None:
+            return None
+        batch = parse(self.client._request_raw("GET", self.list_path))
+        if batch is None:
+            return None  # body didn't parse; Python path will retry
+        items = {}
+        for view in batch.views():
+            key = view.meta_uid
+            if not key:
+                # a uid-less object can't be keyed consistently with the
+                # raw-dict _meta_key later watch events will use — let the
+                # Python re-list handle this (test/fake servers only; real
+                # apiservers always set metadata.uid)
+                return None
+            items[key] = view
+        return items, batch.resource_version
+
+    def _fetch(self, *, native: bool = True):
+        """One full LIST, decoded: (items dict, resourceVersion). The
+        anti-entropy audit passes ``native=False`` so its items decode
+        through the exact per-event Python path the mirror's contents
+        came from (comparable field-by-field)."""
+        if native:
+            got = self._native_relist()
+            if got is not None:
+                return got
         obj = self.client._request("GET", self.list_path)
         items = {}
         for raw in obj.get("items", []) or []:
@@ -460,6 +496,21 @@ def _audit_norm(obj):
     return obj
 
 
+def _shared_batch(objs):
+    """The native PodBatch behind a list of PodViews, if they all share
+    one (a LIST seeds the store from a single batch)."""
+    if not objs:
+        return None
+    batch = getattr(objs[0], "_b", None)
+    if batch is None or not hasattr(batch, "tol_sets"):
+        return None
+    if all(getattr(o, "_b", None) is batch for o in objs) and len(objs) == (
+        batch.count
+    ):
+        return batch
+    return None
+
+
 class ColumnarFeed:
     """Bridges the watch caches into a ``models/columnar.ColumnarStore``.
 
@@ -489,10 +540,13 @@ class ColumnarFeed:
             lambda a, k, o: self._deltas.append(("node", a, o))
         ):
             self._apply("node", "upsert", obj)
-        for obj in pods.subscribe(
+        pod_seed = pods.subscribe(
             lambda a, k, o: self._deltas.append(("pod", a, o))
-        ):
-            self._apply("pod", "upsert", obj)
+        )
+        batch = _shared_batch(pod_seed)
+        if batch is None or not store.bulk_add_pods(batch):
+            for obj in pod_seed:
+                self._apply("pod", "upsert", obj)
 
     def _apply(self, kind: str, action: str, obj) -> None:
         store = self.store
@@ -502,6 +556,9 @@ class ColumnarFeed:
             elif action == "delete":
                 store.remove_pod(obj.uid)
             else:  # replace (re-list after 410 Gone)
+                batch = _shared_batch(obj)
+                if batch is not None and store.bulk_add_pods(batch):
+                    return  # empty store seeded in one vectorized pass
                 store.reconcile_pods(obj)
         else:
             if action == "upsert":
@@ -774,7 +831,7 @@ class WatchingKubeClusterClient:
             # flagged; the heal then merely fast-forwards the store to
             # the LIST's newer state — converging, never corrupting.)
             pre = dict(w.store.snapshot_items())
-            items, rv = w._fetch()
+            items, rv = w._fetch(native=False)
             current = dict(w.store.snapshot_items())
             n_field = n_presence = 0
             for k in set(items) | set(current):

@@ -27,9 +27,9 @@ same taint interning order and scaled numerics, and bit-identical to the
 JAX package's ``ColumnarStore.pack``. ``tests/test_torch_columnar.py``
 pins this across seeded churn.
 
-The LIST-seeding bulk path of the JAX package (``bulk_add_pods`` over a
-native ``PodBatch``) waits for the port of the native LIST decoder: every
-pod enters through ``add_pod``. The churn delta between two packs
+A LIST seeds empty pod columns in one vectorized pass
+(``bulk_add_pods`` over a native ``PodBatch`` of ``io/native_ingest``);
+every other pod enters through ``add_pod``. The churn delta between two packs
 (``PackedDelta``, ``emit_packed_delta``, ``pad_pow2``,
 ``pad_packed_delta``, ``empty_packed_delta``) and the delta wire's
 ``pack_fingerprint`` live in ``models/delta.py`` and are re-exported
@@ -633,6 +633,198 @@ class ColumnarStore:
                 krows = self._key_index.get((pod.namespace, k))
                 if krows is not None:
                     krows.discard(r)
+
+    def bulk_add_pods(self, batch) -> bool:
+        """Vectorized ingestion of a native ``PodBatch``
+        (io/native_ingest.py) into empty pod columns — the LIST-seeding
+        fast path: numpy column assignments instead of 50k ``add_pod``
+        calls. Returns False (caller falls back to per-pod) when the
+        store already holds pods, since bulk assignment has no upsert
+        semantics."""
+        if self._pod_row:
+            return False
+        self._version += 1
+        from k8s_spot_rescheduler_tpu_torch.io import native_ingest as ni
+
+        n = batch.count
+        if n == 0:
+            return True
+        while len(self.p_live) < n:
+            self._grow_pods()
+        R = len(self.resources)
+
+        # resolve batch node ids -> store node rows (-1 = unknown)
+        node_rows = np.array(
+            [self._node_row.get(name, -1) for name in batch.node_names],
+            np.int32,
+        )
+        p_node = node_rows[batch.i32[:, ni.P_NODEID]]
+        named = np.array([bool(s) for s in batch.node_names], bool)[
+            batch.i32[:, ni.P_NODEID]
+        ]
+        keep = np.nonzero(p_node >= 0)[0]
+        k = len(keep)
+        # a bulk load is an authoritative full LIST: previously parked
+        # orphans either reappear in this batch (and re-park below if
+        # their node is still unknown) or no longer exist
+        self._orphans.clear()
+        self._parked_seq.clear()
+
+        # numeric columns, scaled exactly like _scale_requests
+        req = np.empty((k, R), np.float32)
+        src = {"cpu": ni.P_CPU, "memory": ni.P_MEM, "ephemeral-storage": ni.P_EPH}
+        for j, r in enumerate(self.resources):
+            if r == "pods":
+                req[:, j] = 1.0
+            elif r in src:
+                col = batch.i64[keep, src[r]]
+                d = RESOURCE_SCALE.get(r, 1)
+                req[:, j] = col if d == 1 else -(-col // d)
+            else:  # resource the native schema doesn't carry
+                req[:, j] = 0.0
+        self.p_req[:k] = req
+        self.p_cpu[:k] = batch.i64[keep, ni.P_CPU]
+        self.p_node[:k] = p_node[keep]
+        self.p_prio[:k] = batch.i32[keep, ni.P_PRIO]
+        # flag-bit remap: native (M=1,DS=2,R=4,T=8) -> store (M=1,DS=2,T=4,R=8)
+        f = batch.u8[keep, 0]
+        self.p_flags[:k] = (
+            (f & (ni.F_MIRROR | ni.F_DAEMONSET))
+            | ((f & ni.F_TERMINAL) >> 1)
+            | ((f & ni.F_REPLICATED) << 1)
+        )
+        # constraint-profile interning: one lookup per distinct
+        # (toleration set, nodeSelector set, node-affinity, pod-affinity,
+        # unmodeled). The pod-affinity identity is namespace-scoped, so
+        # the namespace joins the combo only when the selector is
+        # non-empty (keeping plain pods to one profile per shape).
+        unmod = (f & (ni.F_PVC | ni.F_REQAFF)) != 0
+        paff_ids = batch.i32[keep, ni.P_PAFFID]
+        paff_nonempty = np.fromiter(
+            (len(s) > 0 for s in batch.paff_protos),
+            bool,
+            count=len(batch.paff_protos),
+        )[paff_ids]
+        spread_ids = batch.i32[keep, ni.P_SPREADID]
+        spread_nonempty = np.fromiter(
+            (len(s) > 0 for s in batch.spread_sets),
+            bool,
+            count=len(batch.spread_sets),
+        )[spread_ids]
+        pzaff_ids = batch.i32[keep, ni.P_PZAFFID]
+        pzaff_nonempty = np.fromiter(
+            (len(s) > 0 for s in batch.pzaff_protos),
+            bool,
+            count=len(batch.pzaff_protos),
+        )[pzaff_ids]
+        # paff/pzaff and spread identities are namespace-scoped: the
+        # namespace joins the combo only when any is non-empty (keeping
+        # plain pods to one profile per shape)
+        ns_eff = np.where(
+            paff_nonempty | spread_nonempty | pzaff_nonempty,
+            batch.i32[keep, ni.P_NSID],
+            np.int32(-1),
+        )
+        combos = np.stack(
+            [
+                batch.i32[keep, ni.P_TOLID],
+                batch.i32[keep, ni.P_SELID],
+                batch.i32[keep, ni.P_NAFFID],
+                paff_ids,
+                spread_ids,
+                pzaff_ids,
+                ns_eff,
+                unmod.astype(np.int32),
+            ],
+            axis=1,
+        )
+        uniq, inverse = np.unique(combos, axis=0, return_inverse=True)
+        ids = np.empty(len(uniq), np.int32)
+        for i, (
+            tol_id, sel_id, naff_id, paff_id, spread_id, pzaff_id, ns_id, um
+        ) in enumerate(uniq):
+            # ns_id is -1 exactly when paff/spread/pzaff are all empty —
+            # then term resolution never reads the namespace
+            ns = batch.namespaces[int(ns_id)] if ns_id >= 0 else ""
+            spread_set = batch.spread_sets[int(spread_id)]
+            key = (
+                tuple(batch.tol_sets[tol_id]),
+                tuple(sorted(batch.selector_set(int(sel_id)).items())),
+                batch.naff_sets[int(naff_id)],
+                batch.paff_terms(int(paff_id), ns),
+                ((ns, tuple(spread_set)) if spread_set else ()),
+                batch.pzaff_terms(int(pzaff_id), ns),
+                bool(um),
+            )
+            tid = self._tol_keys.get(key)
+            if tid is None:
+                tid = self._tol_keys[key] = len(self._tol_lists)
+                self._tol_lists.append(key)
+                self._table_key = None
+            ids[i] = tid
+        self.p_tol_id[:k] = ids[inverse]
+        # affinity-profile interning per distinct (ns, hostname terms,
+        # zone terms, labels)
+        acombos = np.stack(
+            [
+                batch.i32[keep, ni.P_NSID],
+                batch.i32[keep, ni.P_AAFFID],
+                batch.i32[keep, ni.P_ZAFFID],
+                batch.i32[keep, ni.P_LABELSID],
+            ],
+            axis=1,
+        )
+        auniq, ainv = np.unique(acombos, axis=0, return_inverse=True)
+        aids = np.empty(len(auniq), np.int32)
+        for i, (ns_id, aaff_id, zaff_id, l_id) in enumerate(auniq):
+            ns = batch.namespaces[ns_id]
+            akey = (
+                "",  # kube pods carry no synthetic group
+                ns,
+                batch.match_terms(int(aaff_id), ns),
+                batch.zaff_terms(int(zaff_id), ns),
+                tuple(sorted(batch.label_set(int(l_id)).items())),
+            )
+            aid = self._aff_keys.get(akey)
+            if aid is None:
+                aid = self._aff_keys[akey] = len(self._aff_lists)
+                self._aff_lists.append(akey)
+                self._aff_universe_key = None
+            aids[i] = aid
+        self.p_aff_id[:k] = aids[ainv]
+        seq0 = self._seq + 1
+        self._seq += k
+        self.p_seq[:k] = np.arange(seq0, seq0 + k, dtype=np.int64)
+        self.p_live[:k] = True
+        self._pod_hi = max(self._pod_hi, k)
+        self._pod_free = [
+            r for r in range(len(self.p_live) - 1, -1, -1) if r >= k
+        ]
+
+        # identity + PDB label index (the only per-pod Python left)
+        heap, stroff = batch.heap, batch.stroff
+        ns_ids = batch.i32[keep, ni.P_NSID].tolist()
+        label_ids = batch.i32[keep, ni.P_LABELSID].tolist()
+        namespaces = batch.namespaces
+        for r, (i, ns_id, l_id) in enumerate(
+            zip(keep.tolist(), ns_ids, label_ids)
+        ):
+            view = batch.view(i)
+            self.pod_objs[r] = view
+            off, ln = stroff[i, 0]  # PS_NAME
+            ns = namespaces[ns_id]
+            uid = ns + "/" + heap[off : off + ln].decode()
+            self._pod_row[uid] = r
+            self._ns_index.setdefault(ns, set()).add(r)
+            for key, v in batch.label_set(l_id).items():
+                self._label_index.setdefault((ns, key, v), set()).add(r)
+                self._key_index.setdefault((ns, key), set()).add(r)
+
+        # pods on nodes the store hasn't seen yet park as orphans
+        for i in np.nonzero((p_node < 0) & named)[0]:
+            view = batch.view(int(i))
+            self._orphans.setdefault(view.node_name, {})[view.uid] = view
+        return True
 
     def reconcile_pods(self, pods: Sequence[PodSpec]) -> None:
         """Make the pod columns match exactly the given set (a watcher

@@ -274,7 +274,13 @@ def is_device_fault(err: BaseException) -> bool:
     error raised in this module (a wrapper refusing its inputs, the lane
     workspace not allocated), or a CUDA error that surfaced at a later
     synchronisation (a fault inside a kernel is reported there, not by
-    its launch)."""
+    its launch). An injected chaos failure
+    (``service/chaos.ServiceChaosError``) is never one, whatever its
+    text: the type is checked first."""
+    from k8s_spot_rescheduler_tpu_torch.service.chaos import ServiceChaosError
+
+    if isinstance(err, ServiceChaosError):
+        return False
     accelerator_error = getattr(torch, "AcceleratorError", None)
     if isinstance(err, KernelError) or (
         accelerator_error is not None and isinstance(err, accelerator_error)

@@ -32,8 +32,8 @@ jitter; a KIND_RESYNC full-pack retry sleeps a jittered delay first, so
 a fleet-wide restart does not bring every agent back at once.
 
 The transport is a seam (``self.transport``, by default the persistent
-keep-alive ``PooledWireTransport``). The JAX package's chaos wrapper of
-it (``service/chaos.py``) is not ported.
+keep-alive ``PooledWireTransport``): with a service chaos profile,
+``service/chaos.ChaosAgentTransport`` wraps it, handed the pool.
 """
 
 from __future__ import annotations
@@ -394,6 +394,23 @@ class PooledWireTransport:
         self._tls.last_call = None
         return info
 
+    def break_idle(self) -> int:
+        """OS-level half-close of every pooled connection with no reply
+        in flight, LEAVING it in the pool — exactly what a server-side
+        idle-timeout close between ticks looks like to the agent. The
+        chaos half-closed-socket fault (service/chaos.py) calls this;
+        the next request must discover the stale socket and retry once
+        on a fresh one. Returns the number of connections broken."""
+        with self._lock:
+            conns = list(self._conns.values())
+        broken = 0
+        for conn in conns:
+            if conn.idle and not conn.broken:
+                with contextlib.suppress(OSError):
+                    conn.sock.shutdown(socket.SHUT_RDWR)
+                broken += 1
+        return broken
+
     def close(self) -> None:
         with self._lock:
             conns = list(self._conns.values())
@@ -455,9 +472,29 @@ class RemotePlanner:
         self.clock = clock or RealClock()
         # seam: (url, body, headers, timeout) -> reply bytes; raises
         # RemoteCallError for HTTP errors. Default = the persistent
-        # keep-alive pool.
+        # keep-alive pool; service/chaos.py wraps it, handed the pool.
         self._wire_pool = PooledWireTransport()
         self.transport = self._wire_pool
+        if config.service_chaos_profile not in ("", "off", "none"):
+            from k8s_spot_rescheduler_tpu_torch.service.chaos import (
+                ChaosAgentTransport,
+                ServiceFaultPlan,
+            )
+
+            log.info(
+                "CHAOS: service-path fault injection on the agent "
+                "transport (profile=%s seed=%d) — testing mode",
+                config.service_chaos_profile, config.service_chaos_seed,
+            )
+            self.transport = ChaosAgentTransport(
+                self.transport,
+                ServiceFaultPlan.profile(
+                    config.service_chaos_profile,
+                    config.service_chaos_seed,
+                ),
+                clock=self.clock,
+                pool=self._wire_pool,
+            )
         self._pad_c = 0
         self._pad_s = 0
         self._pad_k = config.max_pods_per_node_hint

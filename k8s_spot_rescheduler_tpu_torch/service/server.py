@@ -66,8 +66,16 @@ thread (``start_scheduler``) assembles, scatters and solves, with the
 service's CUDA device set on it. Without a scheduler thread
 (``drain_once`` from the caller: the virtual-clock seam of the tests and
 of in-process callers) the caller's thread solves. Not ported here: the
-JAX package's chaos hooks (``service/chaos.py``), the tenant mesh (one
-device: ``_ensure_mesh`` is None) and the ``/debug/*`` endpoints (404).
+tenant mesh (one device: ``_ensure_mesh`` is None) and the ``/debug/*``
+endpoints (404).
+
+Chaos (``service/chaos.py``, ``--service-chaos-profile``): a seeded
+``ServiceChaos`` runs inside the timed solve window (``on_batch``:
+scripted solve errors, the sick phase's extra latency on the service
+clock) and ahead of the wire decode (``corrupt_request``: a 400, never a
+crash). A scripted solve error is not a fault of the card's kernels: it
+fails its batch typed and the service keeps serving; the sick phase
+flips the watchdog, which on a cuda service only reports.
 """
 
 from __future__ import annotations
@@ -303,8 +311,22 @@ class PlannerService:
         # device solve.
         self.solve_hook = None
         # device-health watchdog (lazy; None while device_sick_threshold
-        # is 0)
+        # is 0) + the server-side chaos hook (None outside chaos runs)
         self._devhealth: Optional[DeviceHealthWatchdog] = None
+        self.chaos = None
+        if config.service_chaos_profile not in ("", "off", "none"):
+            from k8s_spot_rescheduler_tpu_torch.service.chaos import (
+                ServiceChaos,
+                ServiceFaultPlan,
+            )
+
+            self.chaos = ServiceChaos(
+                ServiceFaultPlan.profile(
+                    config.service_chaos_profile,
+                    config.service_chaos_seed,
+                ),
+                clock=self.clock,
+            )
         # warm-restart bookkeeping: recently-used bucket shapes (dims ->
         # last-used wall) and per-tenant last-pack fingerprints, both
         # bounded, persisted to service_state_dir
@@ -1208,9 +1230,12 @@ class PlannerService:
 
     def _device_solve_timed(self, stacked: PackedCluster, batch, split=None):
         """One device-path solve (the solve_hook seam included), timed
-        on the service clock."""
+        on the service clock, with the server-side chaos hook inside the
+        timing window (injected sick-phase latency must be SEEN)."""
         t = self.clock.now()
         try:
+            if self.chaos is not None:
+                self.chaos.on_batch()
             if self.solve_hook is not None:
                 out = np.asarray(self.solve_hook(stacked, batch))
             else:
@@ -1333,6 +1358,8 @@ class PlannerService:
                 best_fit_fallback=cfg.fallback_best_fit,
             )
         try:
+            if self.chaos is not None:
+                self.chaos.on_batch()
             return self._run_on_card(
                 self._sched_programs[horizon], stacked, split
             )
@@ -2037,6 +2064,13 @@ class ServiceServer:
                 # ingest-bandwidth accounting (the ceiling the delta
                 # wire lowers): every /v2/plan body, pack or delta
                 metrics.update_service_wire_ingest(len(body))
+                chaos = server.service.chaos
+                if chaos is not None:
+                    # the decode chaos hook: a corrupted request must
+                    # come back as a clean typed 400, never a crash
+                    corrupted = chaos.corrupt_request(body)
+                    if corrupted is not None:
+                        body = corrupted
                 # the reply speaks the REQUEST's protocol version so an
                 # un-upgraded v1 agent keeps decoding; before a
                 # successful decode the raw header byte is the best

@@ -65,6 +65,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from k8s_spot_rescheduler_tpu_torch.models.cluster import TO_BE_DELETED_TAINT
 from k8s_spot_rescheduler_tpu_torch.models.tensors import PackedCluster
 
 
@@ -334,6 +335,32 @@ SERVICE_PATH = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "data", "service_seed0.json"
 )
 
+# the fault layers' runs (``io/chaos``), frozen from the JAX package into
+# ``CHAOS_PATH`` (``tests/torch_port_fixtures.py chaos``), each from a
+# fresh ``generate_cluster(CONFIGS[config], seed,
+# reschedule_evicted=True)`` with schedules on (horizon
+# ``CHAOS_HORIZON``): ``CHAOS_RUNS`` (name, config, ticks) through a
+# ``ChaosClusterClient`` under ``FaultPlan.profile("heavy", seed)``; the
+# mid-drain crash on ``CRASH_CONFIG`` (``FaultPlan(interrupt_on_taint=
+# 1)``), then ``CRASH_TICKS`` ticks of a restarted controller on the
+# bare cluster; the CLI with ``CHAOS_CLI_ARGS``; and ``POLL_RUNS``, the
+# controller on the polling kube client (no watch cache) through a
+# ``StubApiServer`` (``run_kube_ticks`` without a tracker). ``WATCH_FAULTS`` is the plan with only watch
+# faults that the watched kube run must survive unchanged.
+CHAOS_RUNS = (("heavy-config3", 3, 5), ("heavy-config1", 1, 10))
+CHAOS_HORIZON = 32
+CRASH_CONFIG = 3
+CRASH_TICKS = 3
+CHAOS_CLI_ARGS = (*CLI_ARGS, "--chaos-profile", "light", "--chaos-seed", "0")
+POLL_RUNS = (("config3-poll", 3, 2, 0),)
+WATCH_FAULTS = {"watch_410_streams": (1, 3), "watch_drop_rate": 0.05}
+# the robustness counters a chaos tick records the deltas of
+COUNTERS = ("planner_fallback", "orphaned_taints_recovered",
+            "schedule_invalidated")
+CHAOS_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "data", "chaos_seed0.json"
+)
+
 
 def controller_config(config_cls, spec, horizon: int, observe: str):
     """The controller runs' configuration, of either package's
@@ -407,6 +434,72 @@ def tick_once(rescheduler, client) -> dict:
         "skipped": res.skipped,
         "planner_fallback": bool(res.planner_fallback),
     }
+
+
+def chaos_ticks(rescheduler, client, ticks: int, snapshot) -> list:
+    """``run_ticks`` with each tick's robustness counter deltas
+    (``COUNTERS``) and the ``degraded`` gauge after it, read by
+    ``snapshot`` (either package's ``metrics.robustness_snapshot``).
+    ``client`` is a fake cluster or a ``ChaosClusterClient`` over one."""
+    out = []
+    for _ in range(ticks):
+        before = snapshot()
+        rec = tick_once(rescheduler, client)
+        after = snapshot()
+        rec["counters"] = {k: int(after[k] - before[k]) for k in COUNTERS}
+        rec["degraded"] = int(after["degraded"])
+        out.append(rec)
+    return out
+
+
+def tainted_nodes(client) -> list:
+    """Names of the fake cluster's nodes that carry the ToBeDeleted
+    taint, sorted."""
+    return sorted(
+        name for name, node in client.nodes.items()
+        if any(t.key == TO_BE_DELETED_TAINT for t in node.taints)
+    )
+
+
+def crash_run(client, chaos_client, make_rescheduler, ticks: int,
+              snapshot) -> dict:
+    """The mid-drain crash (either package's classes): a controller
+    (``make_rescheduler(chaos_client)``) over ``chaos_client``, whose
+    plan raises ``ChaosInterrupt`` right after the first taint, ticks
+    once; then a restarted controller (``make_rescheduler(client)``) on
+    the bare cluster ``client`` heals the orphaned taint at start-up and
+    ticks ``ticks`` times. Records the crash, the orphans, the heal
+    count and the later ticks (``chaos_ticks``)."""
+    r = make_rescheduler(chaos_client)
+    client.clock.sleep(r.effective_interval())
+    crashed = False
+    try:
+        r.tick()
+    except BaseException as err:  # noqa: BLE001 — either package's ChaosInterrupt, re-raised otherwise
+        if type(err).__name__ != "ChaosInterrupt":
+            raise
+        crashed = True
+    orphaned = tainted_nodes(client)
+    evicted = sorted(client.evictions)
+    before = snapshot()
+    restarted = make_rescheduler(client)
+    healed = snapshot()["orphaned_taints_recovered"] - before[
+        "orphaned_taints_recovered"]
+    return {
+        "crashed": crashed,
+        "orphaned": orphaned,
+        "evicted_before_restart": evicted,
+        "healed": int(healed),
+        "tainted_after_restart": tainted_nodes(client),
+        "records": chaos_ticks(restarted, client, ticks, snapshot),
+    }
+
+
+def load_chaos(path: str | None = None) -> dict:
+    """The frozen fault-layer runs (``tests/torch_port_fixtures.py
+    chaos``), from ``CHAOS_PATH`` by default."""
+    with open(path or CHAOS_PATH) as f:
+        return json.load(f)
 
 
 def load_ticks(path: str | None = None) -> dict:
@@ -898,16 +991,18 @@ class MirrorTracker:
                     )
 
 
-def run_kube_ticks(rescheduler, stub: StubApiServer, tracker: MirrorTracker,
-                   clock, ticks: int) -> list:
-    """``run_ticks`` through a watched ``StubApiServer``: before each
-    tick the virtual ``clock`` sleeps the effective interval and the
-    watch mirror catches up with every event the stub sent
-    (``MirrorTracker.wait``); the evicted pod UIDs are the stub's."""
+def run_kube_ticks(rescheduler, stub: StubApiServer,
+                   tracker: MirrorTracker | None, clock, ticks: int) -> list:
+    """``run_ticks`` through a ``StubApiServer``: before each tick the
+    virtual ``clock`` sleeps the effective interval and a watch mirror
+    catches up with every event the stub sent (``MirrorTracker.wait``;
+    ``tracker`` None for the polling client, which LISTs afresh each
+    tick); the evicted pod UIDs are the stub's."""
     out = []
     for _ in range(ticks):
         clock.sleep(rescheduler.effective_interval())
-        tracker.wait(stub)
+        if tracker is not None:
+            tracker.wait(stub)
         seen = len(stub.evictions)
         res = rescheduler.tick()
         out.append({

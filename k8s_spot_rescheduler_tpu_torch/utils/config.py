@@ -10,10 +10,8 @@ one source of the planner's defaults too
 
 Knobs of modules not yet ported are left out, with their modules: the
 mesh and memory ladder (``mesh_shape``, ``auto_shard``,
-``solver_hbm_budget``, ``carry_chunks``), chaos injection
-(``chaos_*``; ``service_chaos_profile`` takes only ``""``, ``off`` and
-``none`` until ``service/chaos.py`` is ported), the debug endpoints
-(``debug_endpoints``) and the JAX-only ``jax_cache_dir``.
+``solver_hbm_budget``, ``carry_chunks``) and the debug endpoints
+(``debug_endpoints``); the JAX-only ``jax_cache_dir`` goes.
 """
 
 from __future__ import annotations
@@ -22,8 +20,6 @@ import dataclasses
 from typing import Sequence
 
 SOLVERS = ("torch", "numpy")
-# the service chaos profiles of the port: off, by any of its names
-SERVICE_CHAOS_PROFILES = ("", "off", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +127,15 @@ class ReschedulerConfig:
     # Crash-safe drain recovery: on startup and once per tick, remove
     # ToBeDeleted taints no active drain owns.
     reconcile_orphaned_taints: bool = True
+    # Fault injection (io/chaos.py): wrap the cluster client in the
+    # seeded chaos layer. Empty profile = off (production default).
+    chaos_profile: str = ""
+    chaos_seed: int = 0
+    # Per-stream-open probability that an injected chaos watch stream is
+    # open but SILENT until the client's read timeout (the wedged-stream
+    # failure mode the progress deadline exists to catch). Mixed into
+    # whatever --chaos-profile selects; 0 with chaos off is inert.
+    chaos_watch_stall_rate: float = 0.0
     # --- freshness-gated observe path ---
     # Client-side watch progress deadline (io/watch.py): a stream that
     # delivers no event, bookmark, or clean server close for this long
@@ -173,9 +178,11 @@ class ReschedulerConfig:
     # Warm restart: directory of the per-tenant pack fingerprints and
     # the recently-used bucket list; empty = cold restarts.
     service_state_dir: str = ""
-    # Service-path fault injection: only "", "off" and "none" (off)
-    # until service/chaos.py is ported.
+    # Service-path fault injection (service/chaos.py): seeded wire/HTTP/
+    # solve faults on the agent transport and the service solve hook.
+    # Empty profile = off (production default) — testing/demo only.
     service_chaos_profile: str = ""
+    service_chaos_seed: int = 0
     # How long the batching scheduler waits to coalesce concurrent
     # tenants into one batch; 0 = dispatch immediately.
     service_batch_window: float = 0.02
@@ -262,9 +269,23 @@ class ReschedulerConfig:
                 "service_drain_grace must be >= 0 (0 = evict queued "
                 "work immediately on drain)"
             )
-        if self.service_chaos_profile not in SERVICE_CHAOS_PROFILES:
+        from k8s_spot_rescheduler_tpu_torch.io.chaos import FaultPlan
+        from k8s_spot_rescheduler_tpu_torch.service.chaos import (
+            ServiceFaultPlan,
+        )
+
+        if self.chaos_profile not in FaultPlan.PROFILES:
+            raise ValueError(
+                f"unknown chaos_profile {self.chaos_profile!r} "
+                f"(known: {', '.join(p for p in FaultPlan.PROFILES if p)})"
+            )
+        if self.service_chaos_profile not in ServiceFaultPlan.PROFILES:
             raise ValueError(
                 f"unknown service_chaos_profile "
-                f"{self.service_chaos_profile!r}: service/chaos.py is not "
-                f"ported (known: off, none)"
+                f"{self.service_chaos_profile!r} "
+                f"(known: {', '.join(p for p in ServiceFaultPlan.PROFILES if p)})"
+            )
+        if not 0.0 <= self.chaos_watch_stall_rate <= 1.0:
+            raise ValueError(
+                "chaos_watch_stall_rate must be a probability in [0, 1]"
             )

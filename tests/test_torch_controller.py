@@ -381,12 +381,13 @@ def test_cli_drains_as_the_reference(caplog):
 
 
 def test_cli_refuses_the_flags_of_later_slices():
-    """The flags whose modules are not ported exit 2; the kube source,
-    the watch, the mirror and the lease are accepted (the drains through
-    a stub server: ``tests/test_torch_kube.py``), and so are the planner
-    service's and its agents' (``tests/test_torch_service.py``)."""
+    """The flags whose modules are not ported exit 2, and so does an
+    unknown chaos profile; the kube source, the watch, the mirror and
+    the lease are accepted (the drains through a stub server:
+    ``tests/test_torch_kube.py``), and so are the planner service's and
+    its agents' (``tests/test_torch_service.py``) and the fault layers'
+    (``tests/test_torch_chaos.py``)."""
     for argv in (["--service-chaos-profile", "flaky"],
-                 ["--service-chaos-seed", "1"],
                  ["--chaos-profile", "flaky"], ["--mesh-shape", "2x2"],
                  ["--auto-shard", "true"], ["--solver-hbm-budget", "1"],
                  ["--carry-chunks", "2"], ["--debug-endpoints", "true"],

@@ -808,6 +808,10 @@ def test_service_flags_flow_into_config_and_refused_flags_stay_refused():
             cfg.service_resync_ingest_budget) == (
         "http://a:1,http://b:2", 3.0, False, 5, 2.0, "/x", 0.05, 7.0, 2, 1024)
     assert args.serve == "127.0.0.1:1"
+    chaos = config_from_args(build_parser().parse_args([
+        "--service-chaos-profile", "heavy", "--service-chaos-seed", "4"]))
+    assert (chaos.service_chaos_profile, chaos.service_chaos_seed) == (
+        "heavy", 4)
     for flag in ("--service-chaos-profile", "--chaos-profile", "--mesh-shape",
                  "--auto-shard", "--solver-hbm-budget", "--carry-chunks",
                  "--debug-endpoints", "--trace-dir", "--jax-cache-dir"):

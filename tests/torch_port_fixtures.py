@@ -48,10 +48,18 @@ pack fingerprints and rows, not packs, which the chip smoke rebuilds
 from the seeds. It solves one tenant a batch to bound this CPU's memory
 and takes about an hour.
 
+The ``chaos`` target runs the JAX package under its fault layer
+(``io/chaos``) and writes ``data/chaos_seed0.json`` (``freeze_chaos``):
+the controller through a ``ChaosClusterClient`` under the ``heavy``
+profile, the mid-drain crash and its restart, the CLI with
+``testing.CHAOS_CLI_ARGS`` (a subprocess), and the controller on the
+polling kube client through a stub (``testing.POLL_RUNS``).
+
 Run from the repo root:
 
     JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures 3 4 contended ticks
     JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures service
+    JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures chaos
 
 It writes ``k8s_spot_rescheduler_tpu_torch/data/<name>_seed<seed>.npz``
 (``config3``, ``config4``, ``contended``). The port's tests check that
@@ -384,6 +392,167 @@ def freeze_ticks(seed: int = 0) -> str:
     return testing.TICKS_PATH
 
 
+def reference_chaos_run(config_id: int, ticks: int, horizon: int,
+                        seed: int = 0, profile: str = "heavy") -> dict:
+    """The JAX package's controller through a ``ChaosClusterClient``
+    under ``FaultPlan.profile(profile, seed)`` over a fresh
+    ``generate_cluster(CONFIGS[config_id], seed,
+    reschedule_evicted=True)``: per tick the drain, evicted pod UIDs,
+    skip reason and robustness counter deltas (``testing.chaos_ticks``),
+    and the faults injected in all (``ChaosClusterClient.stats``). Chaos
+    refuses the mirror, so every plan comes from the object path."""
+    from k8s_spot_rescheduler_tpu.io.chaos import ChaosClusterClient, FaultPlan
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS, generate_cluster
+    from k8s_spot_rescheduler_tpu.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu.metrics import registry as metrics
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    spec = CONFIGS[config_id]
+    client = generate_cluster(spec, seed, reschedule_evicted=True)
+    digest = testing.cluster_digest(client)
+    cfg = testing.controller_config(ReschedulerConfig, spec, horizon,
+                                    "columnar")
+    planner = SolverPlanner(cfg)
+    seen = testing.track_observations(planner)
+    chaos = ChaosClusterClient(client, FaultPlan.profile(profile, seed),
+                               clock=client.clock)
+    r = Rescheduler(chaos, planner, cfg, clock=client.clock, recorder=chaos)
+    records = testing.chaos_ticks(r, chaos, ticks,
+                                  metrics.robustness_snapshot)
+    assert set(seen) <= {"NodeMap"}, set(seen)
+    return {
+        "config": config_id,
+        "ticks": ticks,
+        "schedule_horizon": horizon,
+        "profile": profile,
+        "digest": digest,
+        "records": records,
+        "stats": dict(sorted(chaos.stats.items())),
+    }
+
+
+def reference_crash_run(config_id: int, ticks: int, horizon: int,
+                        seed: int = 0) -> dict:
+    """The JAX package's mid-drain crash (``testing.crash_run``) on a
+    fresh ``generate_cluster(CONFIGS[config_id], seed,
+    reschedule_evicted=True)``: ``FaultPlan(interrupt_on_taint=1)``,
+    then a restarted controller with a fresh planner."""
+    from k8s_spot_rescheduler_tpu.io.chaos import ChaosClusterClient, FaultPlan
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS, generate_cluster
+    from k8s_spot_rescheduler_tpu.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu.metrics import registry as metrics
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    spec = CONFIGS[config_id]
+    client = generate_cluster(spec, seed, reschedule_evicted=True)
+    digest = testing.cluster_digest(client)
+    cfg = testing.controller_config(ReschedulerConfig, spec, horizon,
+                                    "columnar")
+    chaos = ChaosClusterClient(
+        client, FaultPlan(seed=seed, interrupt_on_taint=1), clock=client.clock)
+    out = testing.crash_run(
+        client, chaos,
+        lambda c: Rescheduler(c, SolverPlanner(cfg), cfg, clock=client.clock,
+                              recorder=c),
+        ticks, metrics.robustness_snapshot,
+    )
+    return {"config": config_id, "schedule_horizon": horizon,
+            "digest": digest, **out}
+
+
+def reference_chaos_cli_run() -> dict:
+    """``python -m k8s_spot_rescheduler_tpu`` with
+    ``testing.CHAOS_CLI_ARGS`` as a subprocess: each tick's log line
+    (``tick N: drained=[...] failed=[...]`` or ``tick N: skipped
+    (...)``)."""
+    import re
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(DATA_DIR))
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_spot_rescheduler_tpu",
+         *testing.CHAOS_CLI_ARGS],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root, JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    return {
+        "args": list(testing.CHAOS_CLI_ARGS),
+        "ticks": re.findall(r"(tick \d+: .*)$", proc.stderr, re.M),
+    }
+
+
+def reference_poll_run(name: str, config_id: int, ticks: int, horizon: int,
+                       seed: int = 0) -> dict:
+    """The JAX package's controller on its polling ``KubeClusterClient``
+    (no watch cache) through a ``testing.StubApiServer`` serving
+    ``generate_cluster(CONFIGS[config_id], seed)``, on a virtual clock
+    (``testing.run_kube_ticks`` without a tracker): every tick LISTs
+    the stub and plans from the object path."""
+    from k8s_spot_rescheduler_tpu.io.kube import KubeClusterClient
+    from k8s_spot_rescheduler_tpu.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+    from k8s_spot_rescheduler_tpu.utils.clock import FakeClock
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+    from k8s_spot_rescheduler_tpu_torch.io.synthetic import (
+        CONFIGS,
+        generate_cluster,
+    )
+
+    spec = CONFIGS[config_id]
+    client = generate_cluster(spec, seed)
+    cfg = testing.controller_config(ReschedulerConfig, spec, horizon,
+                                    "columnar")
+    planner = SolverPlanner(cfg)
+    seen = testing.track_observations(planner)
+    clock = FakeClock()
+    stub = testing.StubApiServer.from_cluster(client)
+    try:
+        kube = KubeClusterClient(stub.url)
+        records = testing.run_kube_ticks(
+            Rescheduler(kube, planner, cfg, clock=clock, recorder=kube),
+            stub, None, clock, ticks)
+    finally:
+        stub.close()
+    assert seen and set(seen) == {"NodeMap"}, (name, set(seen))
+    return {
+        "config": config_id,
+        "ticks": ticks,
+        "schedule_horizon": horizon,
+        "observe": "kube-poll",
+        "digest": testing.cluster_digest(client),
+        "records": records,
+    }
+
+
+def freeze_chaos(seed: int = 0) -> str:
+    """Write ``testing.CHAOS_PATH``: the fault layers' runs of the JAX
+    package (``testing.CHAOS_RUNS``, the crash on ``CRASH_CONFIG``, the
+    CLI with ``CHAOS_CLI_ARGS`` and ``POLL_RUNS``)."""
+    out = {
+        "seed": seed,
+        "runs": {
+            name: reference_chaos_run(config_id, ticks,
+                                      testing.CHAOS_HORIZON, seed)
+            for name, config_id, ticks in testing.CHAOS_RUNS
+        },
+        "crash": reference_crash_run(testing.CRASH_CONFIG,
+                                     testing.CRASH_TICKS,
+                                     testing.CHAOS_HORIZON, seed),
+        "cli": reference_chaos_cli_run(),
+        "poll": {
+            name: reference_poll_run(name, config_id, ticks, horizon, seed)
+            for name, config_id, ticks, horizon in testing.POLL_RUNS
+        },
+    }
+    with open(testing.CHAOS_PATH, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    return testing.CHAOS_PATH
+
+
 def reference_service(seed: int = 0) -> str:
     """Write ``testing.SERVICE_PATH``: the JAX package's planner service
     on the fleet of ``testing.SERVICE_TENANTS``. For each tenant, its
@@ -480,6 +649,8 @@ def main(argv) -> int:
             path = freeze_ticks()
         elif arg == "service":
             path = reference_service()
+        elif arg == "chaos":
+            path = freeze_chaos()
         else:
             path = freeze(arg if arg == CONTENDED else int(arg))
         print(f"{path}: {os.path.getsize(path)} bytes")
