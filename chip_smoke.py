@@ -91,7 +91,7 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    against a config-1 stub must exit 0 with the frozen drains and
    evicted pods and ``planner_fallback_total=0``. B1/B2's ``launches``
    in the ``kernels`` line are the mirror's path: phase 6's mirror runs
-   and phase 7's runs;
+   and phase 7's runs, with phase 10's bench runs added;
 8. the multi-tenant planner service: the port's ``ServiceServer`` on
    the card (its kernels built before it listens; ``/healthz`` must name
    B1t/B2t) serves 8 agents (``testing.SERVICE_TENANTS``: configs 3 and
@@ -116,7 +116,21 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    k8s_spot_rescheduler_tpu_torch --serve`` runs with an agent CLI
    (``--planner-url``) on config 1, which must drain as the frozen JAX
    CLI run with ``remote_planner_fallback_total=0``, the service
-   exiting 0 on SIGTERM.
+   exiting 0 on SIGTERM;
+9. the controller under the kube fault layer (``io/chaos``), the
+   mid-drain crash and the chaos CLI, against the JAX package's runs
+   with the same faults (``data/chaos_seed0.json``);
+10. the bench (``python -m k8s_spot_rescheduler_tpu_torch.bench``, by
+   its ``run`` function): ``--config 3`` and ``--config 4`` (selections
+   equal the frozen answers; pack, upload, solve+fetch, full tick and
+   device-only ms printed), ``--config 3 --trace-dir`` (the device's
+   busy share of the timed window from its Chrome trace), the config-5
+   replay at 1,000 events and the constrained one at 300,
+   ``--quality``, ``--quality-boundary``, ``--chain-depth`` and
+   ``--quality-scale``, each holding every count, drain, eviction list,
+   ILP value and chain-depth counter equal to the JAX package's
+   (``data/bench_seed0.json``), with B1 and B2 launched, the card named
+   in the attestation and no fallback; each row's JSON on its own line.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -2320,6 +2334,204 @@ def cli_phase(here, kind, card):
         f"[{card}]")
 
 
+def busy_share(path: str) -> dict:
+    """The device's busy share of a ``utils/tracing.device_trace``
+    Chrome trace: the summed durations of its kernel, memcpy and memset
+    events over the traced window (the first event's start to the last
+    one's end)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    check(events, f"{path}: no events in the trace")
+    start = min(e["ts"] for e in events)
+    window = max(e["ts"] + e["dur"] for e in events) - start
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e["dur"] for e in device)
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "share": busy / window if window > 0 else 0.0,
+            "kernels": sum(e.get("cat") == "kernel" for e in device),
+            "copies": sum(e.get("cat") != "kernel" for e in device)}
+
+
+def bench_phase(np, torch, fk, kind, card, here):
+    """Phase 10: the port's bench driver (``python -m
+    k8s_spot_rescheduler_tpu_torch.bench``, by its ``run`` function) on
+    the card in every mode it has, each with the launch counts set to 0
+    just before and read just after: B1 and B2 must have launched in
+    each, every row's attestation must name the card with no planner or
+    remote-planner fallback, and every count, drain, evicted-pod digest,
+    ILP value and chain-depth counter must equal the JAX package's
+    (``data/bench_seed0.json``); the latency rows' selections equal the
+    frozen ``config3_seed0.npz``/``config4_seed0.npz`` answers. One
+    config-3 run goes with ``--trace-dir``: the device's busy share of
+    its timed window comes from the Chrome trace. Each row's JSON is
+    printed on its own line. Returns B1/B2's launches over the phase."""
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.bench import __main__ as bench
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import load_npz
+
+    frozen = testing.load_bench()
+    data = os.path.join(here, "k8s_spot_rescheduler_tpu_torch", "data")
+    total = {"B1": 0, "B2": 0}
+
+    def drive(tag, *argv):
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, row = bench.run(["--device", "cuda", *argv])
+        wall = time.perf_counter() - t0
+        launches = dict(fk.LAUNCHES)
+        print(json.dumps(bench.drop_non_finite(row)), flush=True)
+        check(rc == 0, f"[10] bench {tag}: exit {rc}: {row.get('error')}")
+        check(launches["B1"] > 0 and launches["B2"] > 0,
+              f"[10] bench {tag}: B1/B2 did not launch: {launches}")
+        check(row["launches"] == launches,
+              f"[10] bench {tag}: the row's launches {row['launches']} != "
+              f"the counters {launches}")
+        att = row["backend_attestation"]
+        check(att["solve_backend"] == f"cuda/{kind}"
+              and att.get("nvidia_smi") == card,
+              f"[10] bench {tag}: attestation {att} does not name {kind} "
+              f"[{card}]")
+        check(att["planner_fallbacks"] == 0
+              and att["remote_planner_fallbacks"] == 0
+              and not att["device_sick"],
+              f"[10] bench {tag}: fallback counters {att}")
+        for k in total:
+            total[k] += launches[k]
+        return row, wall, launches
+
+    # ---- latency, configs 3 and 4 (and config 3 traced) --------------
+    lat = {}
+    for config_id in (3, 4):
+        _, ans = load_npz(os.path.join(data, f"config{config_id}_seed0.npz"))
+        row, wall, launches = drive(f"--config {config_id}", "--config",
+                                    str(config_id))
+        check(row["selection"] == ans["selection"].tolist(),
+              f"[10] bench --config {config_id}: selection "
+              f"{row['selection'][:3]} != frozen {ans['selection'][:3]}")
+        lat[config_id] = row
+        dev = row["device_only"]
+        log(f"[10] bench --config {config_id} ({row['metric']}): generate "
+            f"{row['generate_s']:.2f} s, pack {row['pack_ms']:.3f} ms "
+            f"(median of 5), upload {row['upload_ms']:.3f} ms, solve+fetch "
+            f"{row['value']:.3f} ms (median of 10, min "
+            f"{row['solve_fetch_ms_min']:.3f}), with upload "
+            f"{row['with_upload_ms']:.3f} ms, full tick "
+            f"{row['full_tick_ms']:.3f} ms, steady incremental tick "
+            f"{row['steady_tick_ms']:.3f} ms, device-only "
+            f"{dev['device_only_ms']} ms (chain of {dev['chain_len']}: "
+            f"{dev['chain_ms']} ms, floor {dev['rtt_ms']} ms); feasible "
+            f"{row['n_feasible']}/{row['candidates']}, first candidate "
+            f"{row['first_candidate']} == frozen; tier {row['tier']}; "
+            f"launches {launches}; {wall:.1f} s, on {kind} [{card}]")
+    trace_dir = os.path.join(here, "chiprun_out", "bench_traces")
+    row, wall, _ = drive("--config 3 --trace-dir", "--config", "3",
+                         "--trace-dir", trace_dir)
+    check(row.get("trace_file") and os.path.exists(row["trace_file"]),
+          "[10] bench --config 3 --trace-dir wrote no trace")
+    check(row["selection"] == lat[3]["selection"],
+          "[10] traced config-3 selection != untraced")
+    share = busy_share(row["trace_file"])
+    check(share["kernels"] > 0, "[10] the trace holds no kernel event")
+    log(f"[10] bench --config 3 --trace-dir: solve+fetch {row['value']:.3f} "
+        f"ms traced against {lat[3]['value']:.3f} ms untraced; device busy "
+        f"{share['busy_ms']:.3f} ms ({share['kernels']} kernels, "
+        f"{share['copies']} copies) of a {share['window_ms']:.3f} ms traced "
+        f"window (10 solve+fetch calls): busy share "
+        f"{share['share']:.4f}; trace "
+        f"{os.path.relpath(row['trace_file'], here)}, on {kind} [{card}]")
+
+    # ---- the replays ---------------------------------------------------
+    for tag, argv, want in (
+        ("--config 5", ("--config", "5", "--events",
+                        str(testing.BENCH_REPLAY_EVENTS)),
+         frozen["replay"]["replay"]),
+        ("--config 5 --constrained",
+         ("--config", "5", "--constrained", "--events",
+          str(testing.BENCH_CONSTRAINED_EVENTS)),
+         frozen["replay"]["constrained"]),
+    ):
+        check(want["events"] == int(argv[-1]), f"{tag}: frozen events")
+        row, wall, launches = drive(tag, *argv)
+        stats = row["stats"]
+        got = {k: stats[k] for k in want["stats"]}
+        check(got == want["stats"],
+              f"[10] bench {tag}: {got} != the JAX package's {want['stats']}")
+        check(stats["stranded_by_drain"] == 0,
+              f"[10] bench {tag}: stranded {stats['stranded_by_drain']}")
+        log(f"[10] bench {tag} --events {want['events']} ({row['metric']}): "
+            f"replan p50 {row['value']:.3f} ms, p99 "
+            f"{row['replan_ms_p99']:.3f} ms over {stats['ticks']} ticks; "
+            f"{int(stats['interruptions'])} interruptions, "
+            f"{int(stats['displaced_pods'])} displaced pods, "
+            f"{int(stats['drained_nodes'])} drained, stranded 0; every "
+            f"count == the JAX package's; launches {launches}; {wall:.1f} s, "
+            f"on {kind} [{card}]")
+
+    # ---- quality and the boundary ---------------------------------------
+    for tag, group, variants in (("--quality", "quality", ("ffd", "shipped")),
+                                 ("--quality-boundary", "boundary",
+                                  ("shipped",))):
+        row, wall, launches = drive(tag, f"--{tag[2:]}")
+        want_rows = frozen["quality"][group]
+        check(sorted(row["rows"]) == sorted(f"{n}/0" for n in want_rows),
+              f"[10] bench {tag}: configs {sorted(row['rows'])}")
+        parts = []
+        for name, want in want_rows.items():
+            got = row["rows"][f"{name}/0"]
+            check(got["ilp"] == want["ilp"],
+                  f"[10] {tag} {name}: ILP {got['ilp']} != {want['ilp']}")
+            for v in variants:
+                check(got[v] == want[v]
+                      and got[f"{v}_evictions"] == len(want[f"{v}_evictions"])
+                      and got[f"{v}_evictions_sha256"]
+                      == bench.evictions_digest(want[f"{v}_evictions"]),
+                      f"[10] {tag} {name} {v}: {got[v]} drains != the JAX "
+                      f"package's {want[v]} (or its evictions differ)")
+            parts.append(f"{name} ILP {got['ilp']} " + " ".join(
+                f"{v} {got[v]} ({got[f'{v}_ratio']:.3f}, "
+                f"{got[f'{v}_s']:.2f} s)" for v in variants)
+                + f" [ILP {got['ilp_s']:.2f} s]")
+        log(f"[10] bench {tag} ({row['metric']} = {row['value']}): "
+            f"{'; '.join(parts)}; every ILP, drain count and eviction list "
+            f"== the JAX package's; launches {launches}; {wall:.1f} s, on "
+            f"{kind} [{card}]")
+
+    # ---- chain depth -------------------------------------------------------
+    row, wall, launches = drive("--chain-depth", "--chain-depth", "--events",
+                                str(testing.BENCH_CONSTRAINED_EVENTS))
+    for side in ("organic", "control"):
+        check(row[side] == frozen["chain"][side],
+              f"[10] bench --chain-depth {side}: {row[side]} != the JAX "
+              f"package's {frozen['chain'][side]}")
+    check(row["control_deeper"] > 0, "[10] chain3 control: no deeper lane")
+    log(f"[10] bench --chain-depth ({row['metric']} = {row['value']}, "
+        f"control deeper {row['control_deeper']}): organic {row['organic']}; "
+        f"control {row['control']}; == the JAX package's counters; "
+        f"launches {launches}; {wall:.1f} s, on {kind} [{card}]")
+
+    # ---- quality at scale ---------------------------------------------------
+    want = frozen["scale"]
+    row, wall, launches = drive(
+        "--quality-scale", "--quality-scale", "--config", str(want["config"]),
+        "--scale", str(want["scale"]))
+    for key in ("bound", "achieved", "fetches_total", "schedule_lens",
+                "evictions", "evictions_sha256"):
+        check(row[key] == want[key],
+              f"[10] bench --quality-scale {key}: {row[key]} != the JAX "
+              f"package's {want[key]}")
+    log(f"[10] bench --quality-scale --config {want['config']} --scale "
+        f"{want['scale']} ({row['metric']} = {row['value']}): {row['achieved']} "
+        f"of bound {row['bound']} (LP {row['bound_s']:.2f} s), "
+        f"{row['fetches_total']} fetches <= {row['fetch_bound']}, "
+        f"{len(row['schedule_lens'])} schedule cuts, drains "
+        f"{row['sched_wall_s']:.1f} s; bound, drains, fetches, schedule "
+        f"lengths and evictions == the JAX package's; launches {launches}; "
+        f"{wall:.1f} s, on {kind} [{card}]")
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2603,14 +2815,18 @@ def main() -> int:
     chaos_launches = chaos_phase(np, torch, fk, kind, card, here)
 
     phase_done("9 (controller under chaos)")
+    bench_launches = bench_phase(np, torch, fk, kind, card, here)
+    phase_done("10 (bench)")
     # the main path: the controller tick observing through the mirror,
     # fed by the fake cluster (phase 6) and by the watch (phase 7)
     mirror = {k: tick_launches["columnar"][k] + kube_launches[k]
               for k in kube_launches}
     out = []
     for name, launches, path in (
-        ("B1", mirror["B1"], "controller tick on the mirror"),
-        ("B2", mirror["B2"], "controller tick on the mirror"),
+        ("B1", mirror["B1"] + bench_launches["B1"],
+         "controller tick on the mirror, and the bench"),
+        ("B2", mirror["B2"] + bench_launches["B2"],
+         "controller tick on the mirror, and the bench"),
         ("B3", stream_launches["B3"], "streamed union"),
         ("B4", stream_launches["B4"], "streamed union"),
     ):
@@ -2628,6 +2844,7 @@ def main() -> int:
             "streamed union": stream_launches[name],
             "controller under the kube fault layer (phase 9)":
                 chaos_launches[name],
+            "bench (phase 10)": bench_launches.get(name, 0),
         }
         out.append(row)
     for name in ("B1t", "B2t"):

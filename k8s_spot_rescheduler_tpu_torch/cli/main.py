@@ -31,12 +31,16 @@ streams pass the fault layer), and ``--service-chaos-profile``/
 ``--service-chaos-seed`` arm ``service/chaos.py`` on the agent's
 transport and in the service's batch window — testing only.
 
+``--trace-dir DIR`` annotates the tick phases for torch.profiler
+(``utils/tracing.enable_profiler``) and writes one Chrome trace of
+each housekeeping tick under DIR (``utils/tracing.device_trace``: CPU
+activities, and the card's where there is one).
+
 Not in the parser yet, so argparse refuses them, each with the later
 slice that brings it: the mesh and memory ladder (``--mesh-shape``,
 ``--auto-shard``, ``--solver-hbm-budget``, ``--carry-chunks``: multiple
-GPUs, ROADMAP Queue 1 item 7), ``--debug-endpoints`` and
-``--trace-dir`` (the helpers, item 8); the JAX-only
-``--jax-cache-dir`` goes.
+GPUs, ROADMAP Queue 1 item 7) and ``--debug-endpoints`` (the helpers,
+item 8); the JAX-only ``--jax-cache-dir`` goes.
 
 Run e.g.::
 
@@ -310,6 +314,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ticks", type=int, default=0,
                    help="run N housekeeping ticks then exit (0 = forever)")
     p.add_argument("--no-metrics-server", action="store_true")
+    p.add_argument("--trace-dir", default="",
+                   help="write torch.profiler traces of the solver "
+                        "phases here: one Chrome trace a tick")
     return p
 
 
@@ -421,6 +428,10 @@ def main(argv=None) -> int:
         return serve(config, args)
 
     log.info("Running Rescheduler")
+    if args.trace_dir:
+        from k8s_spot_rescheduler_tpu_torch.utils import tracing
+
+        tracing.enable_profiler(args.trace_dir)
     if not args.no_metrics_server:
         from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
 
@@ -562,7 +573,7 @@ def main(argv=None) -> int:
         if elector is not None and not elector.is_leader and not elector.ensure():
             log.vlog(2, "not the leader; standing by")
             continue
-        result = r.tick()
+        result = _traced_tick(r, args.trace_dir)
         if result.drained or result.drain_failed:
             log.info(
                 "tick %d: drained=%s failed=%s", ticks,
@@ -596,6 +607,17 @@ def main(argv=None) -> int:
             int(metrics.service_snapshot()["remote_planner_fallback"]),
         )
     return 0
+
+
+def _traced_tick(r, trace_dir: str):
+    """One tick, inside a ``tracing.device_trace`` when ``trace_dir``
+    is set (one Chrome trace a tick)."""
+    if not trace_dir:
+        return r.tick()
+    from k8s_spot_rescheduler_tpu_torch.utils import tracing
+
+    with tracing.device_trace():
+        return r.tick()
 
 
 def serve(config: ReschedulerConfig, args) -> int:

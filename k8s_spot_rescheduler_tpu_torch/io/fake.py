@@ -249,6 +249,13 @@ class FakeCluster:
         free_mem = node.allocatable.get(MEMORY, 0) - sum(
             p.requests.get(MEMORY, 0) for p in here
         )
+        # every check here is a pure predicate, so their order changes
+        # no answer; the cheap resource fit goes first because the zone
+        # and spread checks below scan the whole cluster
+        if pod.requests.get(CPU, 0) > free_cpu or (
+            pod.requests.get(MEMORY, 0) > free_mem
+        ):
+            return False
         if pod.anti_affinity_group and any(
             p.anti_affinity_group == pod.anti_affinity_group for p in here
         ):
@@ -300,7 +307,7 @@ class FakeCluster:
                     if n2.labels.get(ZONE_LABEL) == zone:
                         yield from self.list_pods_on_node(n2.name)
 
-            if any(
+            if pod.anti_affinity_zone_match and any(
                 term_matches(t, p.namespace, p.labels)
                 for p in _zone_pods()
                 for t in pod.anti_affinity_zone_match
@@ -334,9 +341,7 @@ class FakeCluster:
             self_m = selector_matches(items, pod.labels)
             if counts[d] + (1 if self_m else 0) - min(counts.values()) > skew:
                 return False
-        return pod.requests.get(CPU, 0) <= free_cpu and (
-            pod.requests.get(MEMORY, 0) <= free_mem
-        )
+        return True
 
     def _schedule(self, pod: PodSpec) -> None:
         """Minimal kube-scheduler stand-in: the planner's hinted node if one

@@ -547,6 +547,16 @@ def update_conservatism(n_unplaceable: int, by_reason: dict) -> None:
         blocked_candidates.labels(reason).set(int(by_reason.get(reason, 0)))
 
 
+def conservatism_snapshot() -> dict:
+    """The why-no-drain gauges' current values (test and bench
+    readback): ``unplaceable_pods`` and ``blocked``, reason -> value, for
+    every reason written so far."""
+    return {
+        "unplaceable_pods": unplaceable_pods.value(),
+        "blocked": _by_label(blocked_candidates),
+    }
+
+
 def robustness_snapshot() -> dict:
     """Current robustness counters (tests diff before/after; process
     counters are cumulative)."""

@@ -362,6 +362,31 @@ CHAOS_PATH = os.path.join(
 )
 
 
+# the bench's rows (``python -m k8s_spot_rescheduler_tpu_torch.bench``),
+# frozen from the JAX package into ``BENCH_PATH`` (``tests/
+# torch_port_fixtures.py bench``) at ``BENCH_SEED``: every quality and
+# boundary config drained to exhaustion, the config-5 replay at
+# ``BENCH_REPLAY_EVENTS`` events and the constrained one at
+# ``BENCH_CONSTRAINED_EVENTS``, the chain-depth counters, and
+# ``--quality-scale`` on config ``BENCH_SCALE_CONFIG`` at
+# ``BENCH_SCALE``
+BENCH_SEED = 0
+BENCH_REPLAY_EVENTS = 1000
+BENCH_CONSTRAINED_EVENTS = 300
+BENCH_SCALE_CONFIG = 3
+BENCH_SCALE = 1.0
+BENCH_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "data", "bench_seed0.json"
+)
+
+
+def load_bench(path: str | None = None) -> dict:
+    """The frozen bench rows (``tests/torch_port_fixtures.py bench``),
+    from ``BENCH_PATH`` by default."""
+    with open(path or BENCH_PATH) as f:
+        return json.load(f)
+
+
 def controller_config(config_cls, spec, horizon: int, observe: str):
     """The controller runs' configuration, of either package's
     ``ReschedulerConfig`` class: the spec's resources, a 1 s drain delay

@@ -47,6 +47,7 @@ import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
+from k8s_spot_rescheduler_tpu_torch.utils import logging as log
 
 # name -> one-line meaning. The single source of truth for every span
 # emitted anywhere (docs/OBSERVABILITY.md renders this table; the
@@ -285,20 +286,98 @@ def make_span(name: str, t0_ms: float, dur_ms: float) -> Tuple[str, float, float
 
 
 # ---------------------------------------------------------------------------
-# phase timers (a profiler hook around them is a later slice)
+# phase timers + optional torch.profiler annotation
+
+_trace_dir: Optional[str] = None
+_trace_seq = [0]  # Chrome traces written by this process
+
+
+def enable_profiler(trace_dir: str) -> None:
+    """Annotate subsequent ``phase(...)`` blocks for torch.profiler and
+    let ``device_trace`` write its Chrome traces under ``trace_dir``."""
+    global _trace_dir
+    _trace_dir = trace_dir
+
+
+def disable_profiler() -> None:
+    global _trace_dir
+    _trace_dir = None
 
 
 @contextlib.contextmanager
 def phase(name: str):
-    """Time one tick phase into metrics (+ a span on the ambient trace).
-    The duration is recorded even when the body raises — the span then
-    carries ``error: true`` — so an error-skipped tick still explains
-    where its time went."""
+    """Time one tick phase into metrics (+ a span on the ambient trace,
+    + a ``torch.profiler.record_function`` range while a trace dir is
+    set). The duration is recorded even when the body raises — the span
+    then carries ``error: true`` — so an error-skipped tick still
+    explains where its time went."""
     start = time.perf_counter()
+    ctx = contextlib.nullcontext()
+    if _trace_dir is not None:
+        try:
+            import torch.profiler
+
+            ctx = torch.profiler.record_function(name)
+        except Exception as err:  # noqa: BLE001 — profiling is best-effort
+            log.vlog(2, "profiler unavailable: %s", err)
     t = current_trace()
     sctx = t.span(name) if t is not None else contextlib.nullcontext()
     try:
-        with sctx:
+        with ctx, sctx:
             yield
     finally:
         metrics.observe_tick_phase(name, time.perf_counter() - start)
+
+
+class DeviceTrace:
+    """What ``device_trace`` yields: ``path`` is the Chrome trace it
+    wrote, set when the region ends (None while it runs, when no trace
+    dir is set, or when the profiler failed)."""
+
+    def __init__(self) -> None:
+        self.path: Optional[str] = None
+
+
+@contextlib.contextmanager
+def device_trace():
+    """Wrap a region in a ``torch.profiler.profile`` (CPU activities,
+    and CUDA's where a card is present) and write one Chrome trace per
+    call under the trace dir. A no-op without ``enable_profiler``.
+
+    The profiler is best-effort: a failure of torch.profiler itself is
+    logged and the region runs untraced. An error raised by the region
+    is never caught here; it reaches the caller (the trace of the
+    region up to the error is still written)."""
+    out = DeviceTrace()
+    trace_dir = _trace_dir
+    if trace_dir is None:
+        yield out
+        return
+    prof = None
+    try:
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.__enter__()
+    except Exception as err:  # noqa: BLE001 — profiling is best-effort
+        log.vlog(2, "device trace failed to start: %s", err)
+        prof = None
+    try:
+        yield out
+    finally:
+        if prof is not None:
+            try:
+                prof.__exit__(None, None, None)
+                os.makedirs(trace_dir, exist_ok=True)
+                _trace_seq[0] += 1
+                path = os.path.join(
+                    trace_dir,
+                    f"torch_trace_{os.getpid()}_{_trace_seq[0]}.json",
+                )
+                prof.export_chrome_trace(path)
+                out.path = path
+            except Exception as err:  # noqa: BLE001 — profiling is best-effort; the region's own error (if any) still propagates
+                log.vlog(2, "device trace failed: %s", err)

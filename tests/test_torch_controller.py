@@ -385,13 +385,14 @@ def test_cli_refuses_the_flags_of_later_slices():
     unknown chaos profile; the kube source, the watch, the mirror and
     the lease are accepted (the drains through a stub server:
     ``tests/test_torch_kube.py``), and so are the planner service's and
-    its agents' (``tests/test_torch_service.py``) and the fault layers'
-    (``tests/test_torch_chaos.py``)."""
+    its agents' (``tests/test_torch_service.py``), the fault layers'
+    (``tests/test_torch_chaos.py``) and ``--trace-dir``
+    (``tests/test_torch_tracing.py``)."""
     for argv in (["--service-chaos-profile", "flaky"],
                  ["--chaos-profile", "flaky"], ["--mesh-shape", "2x2"],
                  ["--auto-shard", "true"], ["--solver-hbm-budget", "1"],
                  ["--carry-chunks", "2"], ["--debug-endpoints", "true"],
-                 ["--trace-dir", "/tmp/t"], ["--jax-cache-dir", "/tmp/j"]):
+                 ["--jax-cache-dir", "/tmp/j"]):
         with pytest.raises(SystemExit) as exc:
             port_main(argv)
         assert exc.value.code == 2, argv

@@ -814,7 +814,7 @@ def test_service_flags_flow_into_config_and_refused_flags_stay_refused():
         "heavy", 4)
     for flag in ("--service-chaos-profile", "--chaos-profile", "--mesh-shape",
                  "--auto-shard", "--solver-hbm-budget", "--carry-chunks",
-                 "--debug-endpoints", "--trace-dir", "--jax-cache-dir"):
+                 "--debug-endpoints", "--jax-cache-dir"):
         with pytest.raises(SystemExit):
             build_parser().parse_args([flag, "x"])
     with pytest.raises(ValueError, match="chaos"):

@@ -55,11 +55,20 @@ profile, the mid-drain crash and its restart, the CLI with
 ``testing.CHAOS_CLI_ARGS`` (a subprocess), and the controller on the
 polling kube client through a stub (``testing.POLL_RUNS``).
 
+The ``bench`` target runs the JAX package's bench rows and writes
+``data/bench_seed0.json`` (``freeze_bench``): the quality and boundary
+configs drained to exhaustion (ILP, drains, evicted pod UIDs; the
+numpy solver checked equal), the config-5 and constrained replays'
+counts, the chain-depth counters and ``--quality-scale`` at config 3;
+its parts (``bench:quality``, ``bench:replay``, ``bench:chain``,
+``bench:scale``) may run in parallel processes.
+
 Run from the repo root:
 
     JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures 3 4 contended ticks
     JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures service
     JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures chaos
+    JAX_PLATFORMS=cpu python -m tests.torch_port_fixtures bench
 
 It writes ``k8s_spot_rescheduler_tpu_torch/data/<name>_seed<seed>.npz``
 (``config3``, ``config4``, ``contended``). The port's tests check that
@@ -643,6 +652,220 @@ def reference_service(seed: int = 0) -> str:
     return testing.SERVICE_PATH
 
 
+def _counts(stats: dict) -> dict:
+    """A replay's stats without its times (``replan_ms_*``)."""
+    return {k: v for k, v in stats.items() if not k.startswith("replan_ms")}
+
+
+def reference_quality(spec, seed: int, solver: str = "jax") -> dict:
+    """One quality config as ``bench.py --quality`` runs it: the ILP of
+    its fresh pack, then the ``ffd`` and ``shipped`` variants each
+    drained to exhaustion from a fresh cluster, with that client's
+    evicted pod UIDs."""
+    from k8s_spot_rescheduler_tpu.bench.quality import (
+        drain_to_exhaustion,
+        ilp_max_drains,
+        pack_quality,
+    )
+    from k8s_spot_rescheduler_tpu.io.synthetic import generate_quality_cluster
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    row = {"ilp": ilp_max_drains(pack_quality(spec, seed))}
+    for variant, knobs in (
+        ("ffd", dict(fallback_best_fit=False, repair_rounds=0)),
+        ("shipped", {}),
+    ):
+        client = generate_quality_cluster(spec, seed, reschedule_evicted=True)
+        row[variant] = drain_to_exhaustion(client, ReschedulerConfig(
+            solver=solver, resources=spec.resources, **knobs))
+        row[f"{variant}_evictions"] = list(client.evictions)
+    return row
+
+
+def freeze_bench_quality(seed: int) -> dict:
+    """Every ``QUALITY_CONFIGS`` and ``BOUNDARY_CONFIGS`` entry on the
+    JAX package's default solver, each checked against the numpy solver
+    (the JAX bench's own rows plan on it): same drains, same evictions."""
+    from k8s_spot_rescheduler_tpu.io.synthetic import (
+        BOUNDARY_CONFIGS,
+        QUALITY_CONFIGS,
+    )
+
+    out = {}
+    for group, configs in (("quality", QUALITY_CONFIGS),
+                           ("boundary", BOUNDARY_CONFIGS)):
+        out[group] = {}
+        for name, spec in configs.items():
+            row = reference_quality(spec, seed)
+            oracle = reference_quality(spec, seed, solver="numpy")
+            assert oracle == row, (name, oracle, row)
+            out[group][name] = row
+            print(f"{group} {name}: ILP {row['ilp']} ffd {row['ffd']} "
+                  f"shipped {row['shipped']} (numpy the same)",
+                  file=sys.stderr)
+    return out
+
+
+def freeze_bench_replay(seed: int) -> dict:
+    """The config-5 replay and the constrained one, as ``bench.py
+    --config 5 [--constrained]`` runs them: their count fields."""
+    from k8s_spot_rescheduler_tpu.bench.replay import run_replay
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    out = {}
+    for name, events, constrained in (
+        ("replay", testing.BENCH_REPLAY_EVENTS, False),
+        ("constrained", testing.BENCH_CONSTRAINED_EVENTS, True),
+    ):
+        stats = run_replay(ReschedulerConfig(), n_events=events, seed=seed,
+                           constrained=constrained)
+        out[name] = {"events": events, "stats": _counts(stats)}
+        print(f"{name}: {stats}", file=sys.stderr)
+    return out
+
+
+def _classify(packed) -> dict:
+    from k8s_spot_rescheduler_tpu.bench.chain_depth import classify_packed
+
+    return dict(classify_packed(packed))
+
+
+def _analyze_config(group: str, name: str, seed: int) -> dict:
+    from k8s_spot_rescheduler_tpu.bench.chain_depth import analyze_quality_runs
+    from k8s_spot_rescheduler_tpu.io import synthetic
+
+    configs = getattr(synthetic, group)
+    counts = analyze_quality_runs(seeds=[seed], configs={name: configs[name]})
+    return dict(counts[name])
+
+
+def freeze_bench_chain(seed: int, workers: int = 7) -> dict:
+    """The chain-depth counters as ``bench.py --chain-depth`` gathers
+    them: the organic quality configs, the constrained replay and the
+    chain3 control (the JAX analyzer plans on numpy). The same sums as
+    ``analyze_quality_runs`` and ``analyze_replay``, spread over
+    ``workers`` processes: each config's run is one task, and the
+    constrained replay runs here with a tap that keeps each tick's
+    problem (the analyzer's own id-deduplication) and classifies them
+    in the workers (``classify_packed`` is a function of the problem
+    alone, and the counts add up in any order). Hours in one process:
+    the per-lane ILP takes about a second on each of the ~8,000 lanes
+    the repair search leaves unproven."""
+    import concurrent.futures
+    import multiprocessing
+    from collections import Counter
+
+    from k8s_spot_rescheduler_tpu.bench.replay import run_replay
+    from k8s_spot_rescheduler_tpu.io.synthetic import (
+        BOUNDARY_CONFIGS,
+        QUALITY_CONFIGS,
+    )
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    packs, last = [], [None]
+
+    def tap(packed):
+        if packed is None or id(packed) == last[0]:
+            return
+        last[0] = id(packed)
+        packs.append(packed)
+
+    with concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        runs = {
+            (group, name): pool.submit(_analyze_config, group, name, seed)
+            for group, configs in (("QUALITY_CONFIGS", QUALITY_CONFIGS),
+                                   ("BOUNDARY_CONFIGS", BOUNDARY_CONFIGS))
+            for name in configs
+        }
+        run_replay(ReschedulerConfig(solver="numpy"),
+                   n_events=testing.BENCH_CONSTRAINED_EVENTS, seed=seed,
+                   constrained=True, on_packed=tap)
+        print(f"constrained replay: {len(packs)} problems to classify",
+              file=sys.stderr, flush=True)
+        replay = Counter()
+        for counts in pool.map(_classify, packs, chunksize=4):
+            replay.update(counts)
+        organic = {name: runs[("QUALITY_CONFIGS", name)].result()
+                   for name in QUALITY_CONFIGS}
+        control = {name: runs[("BOUNDARY_CONFIGS", name)].result()
+                   for name in BOUNDARY_CONFIGS}
+    organic["constrained-replay"] = dict(replay)
+    print(f"chain depth: {organic} control {control}", file=sys.stderr)
+    return {"organic": organic, "control": control}
+
+
+def freeze_bench_scale(seed: int) -> dict:
+    """``bench.py --quality-scale --config BENCH_SCALE_CONFIG --scale
+    BENCH_SCALE`` on the JAX solver: the LP bound of the fresh pack, and
+    the controller draining to exhaustion with 256 drains a tick and
+    32-step schedules."""
+    from k8s_spot_rescheduler_tpu.bench.quality import (
+        drain_to_exhaustion,
+        lp_upper_bound,
+    )
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS, generate_cluster
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+    from k8s_spot_rescheduler_tpu_torch.bench.__main__ import (
+        evictions_digest,
+        scaled_spec,
+    )
+
+    scale = testing.BENCH_SCALE
+    spec = scaled_spec(CONFIGS[testing.BENCH_SCALE_CONFIG], scale)
+    bound = lp_upper_bound(pack_spec(spec, seed))
+    cfg = ReschedulerConfig(
+        resources=spec.resources, max_drains_per_tick=256,
+        plan_schedule_enabled=True, schedule_horizon=HORIZON,
+    )
+    client = generate_cluster(spec, seed, reschedule_evicted=True)
+    stats: dict = {}
+    achieved = drain_to_exhaustion(client, cfg, max_ticks=200,
+                                   planner_stats=stats)
+    out = {
+        "config": testing.BENCH_SCALE_CONFIG,
+        "scale": scale,
+        "bound": bound,
+        "achieved": achieved,
+        "fetches_total": int(stats["fetches_total"]),
+        "schedule_lens": [int(n) for n in stats["schedule_lens"]],
+        "evictions": len(client.evictions),
+        "evictions_sha256": evictions_digest(client.evictions),
+    }
+    print(f"quality-scale: {out}", file=sys.stderr)
+    return out
+
+
+BENCH_PARTS = {
+    "quality": freeze_bench_quality,
+    "replay": freeze_bench_replay,
+    "chain": freeze_bench_chain,
+    "scale": freeze_bench_scale,
+}
+
+
+def freeze_bench(parts=tuple(BENCH_PARTS), seed: int = testing.BENCH_SEED) -> str:
+    """Write (or update) ``testing.BENCH_PATH``: the JAX package's bench
+    rows of ``parts`` (default all), each part under its own key. Parts
+    may run in parallel processes (``bench:quality``, ...): the file is
+    read, updated and written under an exclusive lock."""
+    import fcntl
+
+    for part in parts:
+        row = BENCH_PARTS[part](seed)
+        with open(testing.BENCH_PATH + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            out = {"seed": seed}
+            if os.path.exists(testing.BENCH_PATH):
+                out = testing.load_bench()
+            out[part] = row
+            with open(testing.BENCH_PATH, "w") as f:
+                json.dump(out, f, indent=1, sort_keys=True)
+                f.write("\n")
+    return testing.BENCH_PATH
+
+
 def main(argv) -> int:
     for arg in argv or ["3"]:
         if arg == "ticks":
@@ -651,6 +874,8 @@ def main(argv) -> int:
             path = reference_service()
         elif arg == "chaos":
             path = freeze_chaos()
+        elif arg == "bench" or arg.startswith("bench:"):
+            path = freeze_bench(arg.split(":")[1:] or tuple(BENCH_PARTS))
         else:
             path = freeze(arg if arg == CONTENDED else int(arg))
         print(f"{path}: {os.path.getsize(path)} bytes")
