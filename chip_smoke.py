@@ -91,7 +91,8 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    against a config-1 stub must exit 0 with the frozen drains and
    evicted pods and ``planner_fallback_total=0``. B1/B2's ``launches``
    in the ``kernels`` line are the mirror's path: phase 6's mirror runs
-   and phase 7's runs, with phase 10's bench runs added;
+   and phase 7's runs, with phases 10 and 11's bench runs added (B3/B4's
+   are phase 5's with phase 11's);
 8. the multi-tenant planner service: the port's ``ServiceServer`` on
    the card (its kernels built before it listens; ``/healthz`` must name
    B1t/B2t) serves 8 agents (``testing.SERVICE_TENANTS``: configs 3 and
@@ -130,7 +131,16 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    ``--quality-scale``, each holding every count, drain, eviction list,
    ILP value and chain-depth counter equal to the JAX package's
    (``data/bench_seed0.json``), with B1 and B2 launched, the card named
-   in the attestation and no fallback; each row's JSON on its own line.
+   in the attestation and no fallback; each row's JSON on its own line;
+11. the root ``bench.py``'s single-device modes in the same bench:
+   ``--replay-device-only`` on the frozen harvested constrained-replay
+   tick (``data/replay_harvest_seed0.npz``, best-fit and repair fire;
+   the device-only ms of the shipped union), ``--carry-wall`` on config
+   3 at 4 chunks and at the ladder's count (B3/B4 and repair),
+   ``--smoke``, ``--pallas-smoke`` (B4 and B1 against the plain streamed
+   pass and the oracles), ``--chaos`` and ``--watch-soak`` at 300 ticks,
+   every count held against the JAX package's frozen rows, each row's
+   JSON on its own line.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -2532,6 +2542,182 @@ def bench_phase(np, torch, fk, kind, card, here):
     return total
 
 
+CARRY_KEYS = ("carry_chunks", "carry_plane_bytes", "feasible_lanes",
+              "valid_lanes", "bucket")
+
+
+def bench_modes_phase(np, torch, fk, kind, card, here):
+    """Phase 11: the root ``bench.py``'s single-device modes in the port's
+    bench (by its ``run``), on the card, each with the launch counts set to 0
+    just before and read just after, the attestation naming the card,
+    and every count equal to the JAX package's frozen rows
+    (``data/bench_seed0.json``): ``--replay-device-only`` on the frozen
+    harvested tick (a copy of ``data/replay_harvest_seed0.npz`` through
+    ``--harvest-cache``: its selection and feasible lanes; B1 and B2 must
+    launch), ``--carry-wall`` on config 3 at 4 chunks and at the ladder's
+    count (feasible and valid lanes, chunk count, plane bytes, bucket
+    key; B3 and B4 must launch), ``--smoke`` (the first full pack's
+    bytes, the steady tick's delta lanes and staged chunks; every delta
+    smaller than the full pack), ``--pallas-smoke`` (no mismatch, B1 and
+    B4 launched on each pack), ``--chaos`` and ``--watch-soak`` at 300
+    ticks (every stat, no violation; the chaos soak's two scripted
+    planner crashes are its only planner fallbacks). Each row's JSON on
+    its own line. Returns B1-B4's launches over the phase."""
+    import shutil
+
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.bench import __main__ as bench
+
+    frozen = testing.load_bench()
+    total = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+
+    def drive(tag, *argv, fallbacks=0, kernels=("B1", "B2")):
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, row = bench.run(["--device", "cuda", *argv])
+        wall = time.perf_counter() - t0
+        launches = dict(fk.LAUNCHES)
+        print(json.dumps(bench.drop_non_finite(row)), flush=True)
+        check(rc == 0, f"[11] bench {tag}: exit {rc}: "
+              f"{row.get('error') or row.get('violations')}")
+        check(all(launches[k] > 0 for k in kernels),
+              f"[11] bench {tag}: {kernels} did not all launch: {launches}")
+        check(row["launches"] == launches,
+              f"[11] bench {tag}: the row's launches {row['launches']} != "
+              f"the counters {launches}")
+        att = row["backend_attestation"]
+        check(att["solve_backend"] == f"cuda/{kind}"
+              and att.get("nvidia_smi") == card,
+              f"[11] bench {tag}: attestation {att} does not name {kind} "
+              f"[{card}]")
+        check(att["planner_fallbacks"] == fallbacks
+              and att["remote_planner_fallbacks"] == 0
+              and not att["device_sick"],
+              f"[11] bench {tag}: fallback counters {att} (want "
+              f"{fallbacks} planner fallbacks)")
+        for k in total:
+            total[k] += launches[k]
+        return row, wall, launches
+
+    # ---- --replay-device-only on the frozen harvested tick -------------
+    want = frozen["harvest"]
+    cache = os.path.join(here, "build", "bench_modes",
+                         "replay_harvest_seed0.npz")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    shutil.copyfile(testing.HARVEST_PATH, cache)
+    row, wall, launches = drive("--replay-device-only",
+                                "--replay-device-only", "--harvest-cache",
+                                cache)
+    for key in ("selection", "feasible", "unproven", "bf_only",
+                "tick_shape"):
+        check(row[key] == want[key],
+              f"[11] --replay-device-only {key}: {row[key]} != the JAX "
+              f"package's {want[key]}")
+    dev = row["device_only"]
+    log(f"[11] bench --replay-device-only ({row['metric']}): the constrained "
+        f"replay's tick at {want['events']} events, C={want['tick_shape']['C']} "
+        f"K={want['tick_shape']['K']} S={want['tick_shape']['S']}, "
+        f"{want['unproven']} greedy-unproven lanes ({row['note']}): "
+        f"device-only {row['value']:.3f} ms a union solve (chain of "
+        f"{dev['chain_len']}: {dev['chain_ms']} ms, floor {dev['rtt_ms']} ms), "
+        f"first call {row['first_call_s']:.2f} s; selection (first "
+        f"{row['selection'][0]}, {row['feasible']} feasible) == the JAX "
+        f"package's; launches {launches}; {wall:.1f} s, on {kind} [{card}]")
+
+    # ---- --carry-wall on config 3, pinned and the ladder's count -------
+    carry = frozen["carry"]
+    for key, extra in (("pinned", ("--carry-chunks",
+                                   str(testing.BENCH_CARRY_CHUNKS))),
+                       ("ladder", ())):
+        tag = f"--carry-wall --config {carry['config']} {' '.join(extra)}"
+        row, wall, launches = drive(tag.strip(), "--carry-wall", "--config",
+                                    str(carry["config"]), *extra,
+                                    kernels=("B3", "B4"))
+        got = {k: row[k] for k in CARRY_KEYS}
+        check(got == carry[key], f"[11] bench {tag}: {got} != the JAX "
+              f"package's {carry[key]}")
+        log(f"[11] bench {tag.strip()} ({row['metric']}): union wall "
+            f"{row['value']:.3f} ms (median of {row['repeats']}, min "
+            f"{row['wall_ms_min']:.3f}), first call {row['compile_s']:.2f} s, "
+            f"{row['carry_chunks']} chunks of layout "
+            f"{'/'.join(row['carry_layout'])} ({row['carry_plane_bytes']} B a "
+            f"lane-spot); {row['feasible_lanes']}/{row['valid_lanes']} lanes "
+            f"feasible, bucket {row['bucket']} == the JAX package's; launches "
+            f"{launches}; {wall:.1f} s, on {kind} [{card}]")
+
+    # ---- --smoke ---------------------------------------------------------
+    want = frozen["smoke"]
+    row, wall, launches = drive("--smoke", "--smoke")
+    ups = row["upload_bytes"]
+    check(ups[0] == want["upload_bytes"][0],
+          f"[11] --smoke: first full pack {ups[0]} B != the JAX package's "
+          f"{want['upload_bytes'][0]} B")
+    check(all(0 < u < ups[0] for u in ups[1:]),
+          f"[11] --smoke: a delta tick is not smaller than the full pack: "
+          f"{ups}")
+    for key in ("delta_pack_lanes", "chunks_solved", "chunks_skipped"):
+        check(row[key] == want[key][-1], f"[11] --smoke {key}: {row[key]} "
+              f"!= the JAX package's {want[key][-1]}")
+    log(f"[11] bench --smoke ({row['metric']} = {row['value']}): uploads per "
+        f"tick {ups} B (the JAX package's, its delta sections padded to "
+        f"powers of two: {want['upload_bytes']} B), steady tick "
+        f"{row['steady_tick_ms']:.3f} ms (plan.solve span "
+        f"{row['span_solve_ms']:.3f} ms), chunks {row['chunks_solved']} "
+        f"solved / {row['chunks_skipped']} skipped == the JAX package's; "
+        f"launches {launches}; {wall:.1f} s, on {kind} [{card}]")
+
+    # ---- --pallas-smoke --------------------------------------------------
+    want = frozen["smoke"]["pallas"]
+    row, wall, launches = drive("--pallas-smoke", "--pallas-smoke",
+                                kernels=("B1", "B4"))
+    check(row["mismatches"] == want["mismatches"] == []
+          and row["checks"] == want["checks"]
+          and row["chunk_counts"] == want["chunk_counts"],
+          f"[11] --pallas-smoke: {row['mismatches']} ({row['checks']} checks)")
+    check(row["kernels"] == ["B1", "B4"]
+          and launches["B4"] == launches["B1"] == row["cases"],
+          f"[11] --pallas-smoke: kernels {row['kernels']}, launches {launches}")
+    log(f"[11] bench --pallas-smoke ({row['metric']} = {row['value']}): "
+        f"{row['cases']} packs, {row['checks']} checks: B4 == plain streamed "
+        f"best-fit at chunk counts {row['chunk_counts']} == the best-fit "
+        f"oracle, B1 == the first-fit oracle, 0 mismatches as the JAX "
+        f"package's; launches {launches}; {wall:.1f} s, on {kind} [{card}]")
+
+    # ---- --chaos and --watch-soak ----------------------------------------
+    n = str(frozen["soak"]["ticks"])
+    want = frozen["soak"]["chaos"]
+    row, wall, launches = drive("--chaos", "--chaos", "--chaos-ticks", n,
+                                fallbacks=2)
+    got = {k: row.get(k) for k in want}
+    check(got == want, f"[11] --chaos: {got} != the JAX package's {want}")
+    log(f"[11] bench --chaos --chaos-ticks {n} ({row['metric']} = "
+        f"{row['value']}): {row['drains']} drains ({row['drains_after_quiesce']} "
+        f"after quiesce), {row['injected_faults']} injected faults, "
+        f"{row['mid_drain_interrupts']} mid-drain restart, "
+        f"{row['planner_fallback_ticks']} scripted planner crashes contained, "
+        f"{row['flight_breaker_engagements']} breaker engagements, "
+        f"{row['flight_dumps']} flight dumps, 0 orphaned taints; every stat "
+        f"== the JAX package's; soak {row['wall_s']:.2f} s; launches "
+        f"{launches}; on {kind} [{card}]")
+    want = frozen["soak"]["watch"]
+    row, wall, launches = drive("--watch-soak", "--watch-soak",
+                                "--watch-soak-ticks", n)
+    check(not want["violations"] and "violations" not in row,
+          f"[11] --watch-soak violations: {row.get('violations')}")
+    got = {k: row.get(k) for k in want["stats"]}
+    check(got == want["stats"],
+          f"[11] --watch-soak: {got} != the JAX package's {want['stats']}")
+    log(f"[11] bench --watch-soak --watch-soak-ticks {n} ({row['metric']} = "
+        f"{row['value']}): {row['drains']} drains, {row['stalls_detected']} "
+        f"stalls, {row['relists']} relists, {row['resync_audits']} audits, "
+        f"drift healed in {row['drift_heal_seconds']} s, "
+        f"{row['freshness_bypass_ticks']} bypassed ticks, "
+        f"{row['full_lists']} LISTs, mirror parity {row['mirror_parity']}; "
+        f"every stat == the JAX package's; soak {row['wall_s']:.2f} s; "
+        f"launches {launches}; on {kind} [{card}]")
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2817,18 +3003,22 @@ def main() -> int:
     phase_done("9 (controller under chaos)")
     bench_launches = bench_phase(np, torch, fk, kind, card, here)
     phase_done("10 (bench)")
+    modes_launches = bench_modes_phase(np, torch, fk, kind, card, here)
+    phase_done("11 (bench modes)")
     # the main path: the controller tick observing through the mirror,
     # fed by the fake cluster (phase 6) and by the watch (phase 7)
     mirror = {k: tick_launches["columnar"][k] + kube_launches[k]
               for k in kube_launches}
     out = []
     for name, launches, path in (
-        ("B1", mirror["B1"] + bench_launches["B1"],
+        ("B1", mirror["B1"] + bench_launches["B1"] + modes_launches["B1"],
          "controller tick on the mirror, and the bench"),
-        ("B2", mirror["B2"] + bench_launches["B2"],
+        ("B2", mirror["B2"] + bench_launches["B2"] + modes_launches["B2"],
          "controller tick on the mirror, and the bench"),
-        ("B3", stream_launches["B3"], "streamed union"),
-        ("B4", stream_launches["B4"], "streamed union"),
+        ("B3", stream_launches["B3"] + modes_launches["B3"],
+         "streamed union, and the bench's carry wall"),
+        ("B4", stream_launches["B4"] + modes_launches["B4"],
+         "streamed union, and the bench's carry wall and parity smoke"),
     ):
         row = dict(timings[name])
         row.pop("what")
@@ -2845,6 +3035,7 @@ def main() -> int:
             "controller under the kube fault layer (phase 9)":
                 chaos_launches[name],
             "bench (phase 10)": bench_launches.get(name, 0),
+            "bench modes (phase 11)": modes_launches[name],
         }
         out.append(row)
     for name in ("B1t", "B2t"):

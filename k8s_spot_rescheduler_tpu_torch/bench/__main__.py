@@ -33,11 +33,33 @@ packages compare:
   constrained replay at ``--events``) and the chain3 control. Metric
   ``chain_depth_demand_deeper_lanes_organic``; exit 1 when the control
   registers no ``deeper`` lane.
+- ``--replay-device-only [--harvest-cache PATH]``: the constrained-replay
+  tick (``--events``) where greedy leaves the most lanes unproven, on
+  the shipped union by the device-only protocol (``bench/
+  replay_device``). Metric ``replay_constrained_device_only_ms``; exit 1
+  when no tick fires best-fit.
+- ``--carry-wall [--carry-chunks N]``: the carry-streamed union (B3/B4,
+  repair) at ``--config`` x ``--scale`` (``bench/carry_wall``). Metric
+  ``carry_union_wall_ms_config3_x1`` and its siblings.
+- ``--smoke``: five ticks of the incremental pipeline on a small
+  cluster; exit 1 unless the delta tick uploads fewer bytes than the
+  first full pack (``bench/smoke``). Metric
+  ``bench_smoke_delta_upload_bytes``.
+- ``--pallas-smoke``: kernel B4 against the plain streamed best-fit at
+  chunk counts 2, 3 and 5 and the oracle, B1 against the oracle, on
+  three small packs (``bench/smoke``). Metric ``pallas_parity_wall_s``.
+- ``--chaos [--chaos-ticks N]`` and ``--watch-soak [--watch-soak-ticks
+  N]``: the control loop under the seeded fault layers on a virtual
+  clock, held to its robustness and freshness invariants (``bench/
+  soak``). Metrics ``chaos_soak_completed_ticks`` and
+  ``watch_soak_completed_ticks``; exit 1 on any violation.
 
 Every mode plans with ``solver="torch"`` on ``--device`` (``cuda`` by
-default). There is no fallback: without a card and without ``--device
-cpu`` the driver exits 1 with the error ``device.resolve_device``
-raises and prints no row; a fault of the card's kernels ends the run.
+default), but for the host half of ``--replay-device-only``, which
+replays on the numpy oracle as the reference does. There is no
+fallback: without a card and without ``--device cpu`` the bench exits
+1 with the error ``device.resolve_device`` raises and prints no row; a
+fault of the card's kernels ends the run.
 Progress goes to stderr, then ONE JSON line to stdout. Each row carries
 ``backend_attestation`` (the device that solved, the card's name and
 ``nvidia-smi`` name and power limit, ``device_sick``, and the planner
@@ -52,6 +74,8 @@ Run e.g.::
     python -m k8s_spot_rescheduler_tpu_torch.bench --device cpu --config 1
     python -m k8s_spot_rescheduler_tpu_torch.bench --device cpu --config 5 --events 20
     python -m k8s_spot_rescheduler_tpu_torch.bench --device cpu --quality
+    python -m k8s_spot_rescheduler_tpu_torch.bench --carry-wall --carry-chunks 4
+    python -m k8s_spot_rescheduler_tpu_torch.bench --device cpu --chaos
 """
 
 from __future__ import annotations
@@ -104,18 +128,67 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-dir", default="",
                     help="wrap the timed region in a torch.profiler "
                          "trace written here")
+    ap.add_argument("--replay-device-only", action="store_true",
+                    help="harvest the constrained-replay tick where "
+                         "best-fit and repair fire and run the device-"
+                         "only chain protocol on it")
+    ap.add_argument("--harvest-cache", default="",
+                    help="with --replay-device-only: reuse or store the "
+                         "harvested tick at this .npz path")
+    ap.add_argument("--carry-wall", action="store_true",
+                    help="wall clock of the carry-streamed union (B3/B4, "
+                         "repair) at --config x --scale")
+    ap.add_argument("--carry-chunks", type=int, default=0,
+                    help="with --carry-wall: pin the carry chunk count "
+                         "(0 = the 20x ladder verdict's count)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="five incremental ticks on a small cluster; the "
+                         "delta tick must ship fewer bytes than the first "
+                         "full pack")
+    ap.add_argument("--pallas-smoke", action="store_true",
+                    help="kernel B4 against the plain streamed best-fit "
+                         "at chunk counts 2, 3, 5 and the oracle, B1 "
+                         "against the oracle (plain versions only with "
+                         "--device cpu)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="chaos soak: the control loop under the seeded "
+                         "kube fault layer and two scripted planner "
+                         "crashes, held to the robustness invariants")
+    ap.add_argument("--chaos-ticks", type=int, default=300,
+                    help="ticks of the --chaos soak")
+    ap.add_argument("--watch-soak", action="store_true",
+                    help="freshness soak: the watch protocol under "
+                         "stalls, drops, scripted 410s and one mirror "
+                         "corruption, held to the freshness invariants")
+    ap.add_argument("--watch-soak-ticks", type=int, default=300,
+                    help="ticks of the --watch-soak run")
     return ap
 
 
 def metric_for(args) -> tuple:
     """(metric name, unit) of this invocation: the root ``bench.py``'s
     ``_metric_for`` for the same flags."""
+    if args.chaos:
+        return "chaos_soak_completed_ticks", "count"
+    if args.watch_soak:
+        return "watch_soak_completed_ticks", "count"
+    if args.smoke:
+        return "bench_smoke_delta_upload_bytes", "bytes"
+    if args.pallas_smoke:
+        return "pallas_parity_wall_s", "s"
+    if args.carry_wall:
+        return (
+            "carry_union_wall_ms_config%d_x%g" % (args.config, args.scale),
+            "ms",
+        )
     if args.quality:
         return "nodes_freed_vs_ilp_oracle_ratio", "ratio"
     if args.quality_boundary:
         return "repair_boundary_chain3_ratio", "ratio"
     if args.chain_depth:
         return "chain_depth_demand_deeper_lanes_organic", "count"
+    if args.replay_device_only:
+        return "replay_constrained_device_only_ms", "ms"
     if args.quality_scale:
         return (
             "nodes_freed_vs_lp_bound_ratio_config%d" % args.config,
@@ -283,22 +356,27 @@ def _synced(device):
 
 
 def run_incremental_ticks(client, store, pdbs, spec, device, n_ticks: int,
-                          churn: int = 5):
+                          churn: int = 5, staged_chunk_lanes=None):
     """The production per-tick pipeline: ``TorchSolverPlanner.plan`` on
     the mirror, each tick's pack diffed into the resident cache, the
-    staged early-exit solve, one small fetch; ``churn`` pod removals
-    between ticks. Returns (tick ms, reports, mirror-sync ms); tick 0 is
-    the cold full upload."""
+    staged early-exit solve (``staged_chunk_lanes`` lanes a chunk, the
+    config's default when None), one small fetch; ``churn`` pod removals
+    between ticks. Each tick runs under its own trace
+    (``utils/tracing.tick_trace``), as the control loop runs it. Returns
+    (tick ms, reports, mirror-sync ms, traces); tick 0 is the cold full
+    upload."""
     from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
         TorchSolverPlanner,
     )
+    from k8s_spot_rescheduler_tpu_torch.utils import tracing
     from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
 
-    planner = TorchSolverPlanner(
-        ReschedulerConfig(resources=spec.resources), device=device
-    )
+    cfg = ReschedulerConfig(resources=spec.resources)
+    if staged_chunk_lanes is not None:
+        cfg = dataclasses.replace(cfg, staged_chunk_lanes=staged_chunk_lanes)
+    planner = TorchSolverPlanner(cfg, device=device)
     uids = iter(list(client.pods))
-    tick_ms, reports, sync_ms = [], [], []
+    tick_ms, reports, sync_ms, traces = [], [], [], []
     for i in range(n_ticks):
         if i:
             t_s = time.perf_counter()
@@ -308,9 +386,11 @@ def run_incremental_ticks(client, store, pdbs, spec, device, n_ticks: int,
                     client._remove_pod(uid)
             sync_ms.append((time.perf_counter() - t_s) * 1e3)
         t0 = time.perf_counter()
-        reports.append(planner.plan(store, pdbs))
+        with tracing.tick_trace() as trace:
+            reports.append(planner.plan(store, pdbs))
+        traces.append(trace)
         tick_ms.append((time.perf_counter() - t0) * 1e3)
-    return tick_ms, reports, sync_ms
+    return tick_ms, reports, sync_ms, traces
 
 
 def run_latency(args, device, metric: str, unit: str) -> tuple:
@@ -372,7 +452,7 @@ def run_latency(args, device, metric: str, unit: str) -> tuple:
         e2e.append(time.perf_counter() - t0)
 
     protocol_rec = protocol.run_protocol(fused, device_packed)
-    tick_ms, tick_reports, sync_ms = run_incremental_ticks(
+    tick_ms, tick_reports, sync_ms, _ = run_incremental_ticks(
         client, store, pdbs, spec, device,
         n_ticks=max(4, min(8, args.repeats)),
     )
@@ -708,12 +788,44 @@ def run(argv=None) -> tuple:
     if args.trace_dir:
         tracing.enable_profiler(args.trace_dir)
     try:
-        if args.quality:
+        if args.chaos:
+            from k8s_spot_rescheduler_tpu_torch.bench.soak import run_chaos
+
+            mode = run_chaos
+        elif args.watch_soak:
+            from k8s_spot_rescheduler_tpu_torch.bench.soak import (
+                run_watch_soak,
+            )
+
+            mode = run_watch_soak
+        elif args.smoke:
+            from k8s_spot_rescheduler_tpu_torch.bench.smoke import run_smoke
+
+            mode = run_smoke
+        elif args.pallas_smoke:
+            from k8s_spot_rescheduler_tpu_torch.bench.smoke import (
+                run_pallas_smoke,
+            )
+
+            mode = run_pallas_smoke
+        elif args.carry_wall:
+            from k8s_spot_rescheduler_tpu_torch.bench.carry_wall import (
+                run_carry_wall,
+            )
+
+            mode = run_carry_wall
+        elif args.quality:
             mode = run_quality
         elif args.quality_boundary:
             mode = run_quality_boundary
         elif args.chain_depth:
             mode = run_chain_depth
+        elif args.replay_device_only:
+            from k8s_spot_rescheduler_tpu_torch.bench.replay_device import (
+                run_replay_device_only,
+            )
+
+            mode = run_replay_device_only
         elif args.quality_scale:
             mode = run_quality_scale
         elif args.config == 5:

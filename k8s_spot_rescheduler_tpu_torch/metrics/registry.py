@@ -568,6 +568,36 @@ def robustness_snapshot() -> dict:
     }
 
 
+def _counter_value(counter) -> float:
+    """An unlabeled counter's value (0 when never incremented)."""
+    return counter.value()
+
+
+def _labeled_counter_total(counter) -> float:
+    """A labeled counter summed over every label value written."""
+    with _LOCK:
+        return float(sum(counter.values.values()))
+
+
+def freshness_snapshot() -> dict:
+    """Current watch-liveness/freshness counters (tests and the soak
+    harness diff before/after; labeled counters are summed across
+    resources)."""
+    return {
+        "watch_events": _labeled_counter_total(watch_events),
+        "watch_relists": _labeled_counter_total(watch_relists),
+        "watch_stream_errors": _labeled_counter_total(watch_stream_errors),
+        "watch_stalls": _labeled_counter_total(watch_stalls),
+        "watch_drift": _labeled_counter_total(watch_drift),
+        "watch_presence_heals": _labeled_counter_total(watch_presence_heals),
+        "resync_audits": _counter_value(resync_audits),
+        "freshness_bypass": _counter_value(freshness_bypass),
+        "mirror_stale_planned": _counter_value(mirror_stale_planned),
+        "mirror_staleness_seconds": mirror_staleness.value(),
+        "observe_delta_events": observe_delta_events.value(),
+    }
+
+
 
 # run maxima of the batch gauges and of concurrent resync ingests
 _service_batch_max = {"lanes": 0, "tenants": 0}

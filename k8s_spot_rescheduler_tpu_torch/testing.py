@@ -378,6 +378,21 @@ BENCH_SCALE = 1.0
 BENCH_PATH = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "data", "bench_seed0.json"
 )
+# the root bench.py's single-device modes, frozen into the same file:
+# the constrained-replay tick ``--replay-device-only`` harvests at
+# ``BENCH_HARVEST_EVENTS`` events, stored as the reference's harvest
+# cache at ``HARVEST_PATH``; ``--carry-wall`` on config
+# ``BENCH_CARRY_CONFIG`` at ``BENCH_CARRY_CHUNKS`` chunks and at the
+# ladder's count; ``--smoke``, ``--pallas-smoke``; ``--chaos`` and
+# ``--watch-soak`` at ``BENCH_SOAK_TICKS`` ticks
+BENCH_HARVEST_EVENTS = 300
+HARVEST_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "data",
+    "replay_harvest_seed0.npz",
+)
+BENCH_CARRY_CONFIG = 3
+BENCH_CARRY_CHUNKS = 4
+BENCH_SOAK_TICKS = 300
 
 
 def load_bench(path: str | None = None) -> dict:

@@ -339,7 +339,9 @@ METRIC_FLAGS = (
     ["--config", "3", "--scale", "0.5"], ["--config", "5"],
     ["--config", "5", "--constrained"], ["--quality"],
     ["--quality-boundary"], ["--chain-depth"], ["--quality-scale"],
-    ["--quality-scale", "--config", "4"],
+    ["--quality-scale", "--config", "4"], ["--replay-device-only"],
+    ["--carry-wall"], ["--carry-wall", "--config", "4", "--scale", "0.5"],
+    ["--smoke"], ["--pallas-smoke"], ["--chaos"], ["--watch-soak"],
 )
 ROOT_FLAGS = ("chaos", "watch_soak", "smoke", "scale_smoke", "serve_smoke",
               "sched_smoke", "fleet_chaos", "fleet_twin_smoke", "fleet_twin",
@@ -354,7 +356,7 @@ def test_driver_metric_names_equal_the_root_bench(flags):
     finally:
         sys.path.remove(REPO)
     args = build_parser().parse_args(flags)
-    root_args = argparse.Namespace(**vars(args), **dict.fromkeys(ROOT_FLAGS, False))
+    root_args = argparse.Namespace(**{**dict.fromkeys(ROOT_FLAGS, False), **vars(args)})
     assert metric_for(args) == root_bench._metric_for(root_args)
 
 

@@ -60,8 +60,15 @@ The ``bench`` target runs the JAX package's bench rows and writes
 configs drained to exhaustion (ILP, drains, evicted pod UIDs; the
 numpy solver checked equal), the config-5 and constrained replays'
 counts, the chain-depth counters and ``--quality-scale`` at config 3;
-its parts (``bench:quality``, ``bench:replay``, ``bench:chain``,
-``bench:scale``) may run in parallel processes.
+and the root ``bench.py``'s single-device modes: the tick
+``--replay-device-only`` harvests at 300 events (written by the
+reference's own harvest to ``data/replay_harvest_seed0.npz``) with the
+reference union's selection on it, ``--carry-wall`` on config 3 at 4
+chunks and at the ladder's count, ``--smoke``'s ticks and
+``--pallas-smoke``'s parity row, and ``--chaos`` and ``--watch-soak`` at
+300 ticks; its parts (``bench:quality``, ``bench:replay``,
+``bench:chain``, ``bench:scale``, ``bench:harvest``, ``bench:carry``,
+``bench:smoke``, ``bench:soak``) may run in parallel processes.
 
 Run from the repo root:
 
@@ -77,6 +84,7 @@ each frozen pack still equals a fresh one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -837,11 +845,187 @@ def freeze_bench_scale(seed: int) -> dict:
     return out
 
 
+def _root_bench():
+    """The repo's root ``bench.py`` as a module."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import bench
+
+    return bench
+
+
+def _root_row(fn, *args) -> dict:
+    """Run a root ``bench.py`` mode function and return the one JSON row
+    it prints (its progress goes to stderr)."""
+    import contextlib
+    import io
+
+    once = _root_bench()._emit_once  # emit prints one row a process
+    if once.locked():
+        once.release()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args)
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    return json.loads(lines[-1])
+
+
+def reference_harvest(n_events: int, seed: int, cache: str) -> tuple:
+    """The host half of ``bench.py --replay-device-only --events
+    n_events --harvest-cache cache``: the reference's own harvest, which
+    writes ``cache`` (a fresh one: an existing file is removed first),
+    with its device half replaced by a capture. Returns (harvest, replay
+    stats)."""
+    root_bench = _root_bench()
+    captured = {}
+
+    def capture(args, harvest, stats):
+        captured.update(harvest=harvest, stats=stats)
+        return 0
+
+    if os.path.exists(cache):
+        os.remove(cache)
+    saved = root_bench._replay_device_protocol
+    root_bench._replay_device_protocol = capture
+    try:
+        root_bench.run_replay_device_only(argparse.Namespace(
+            events=n_events, seed=seed, harvest_cache=cache))
+    finally:
+        root_bench._replay_device_protocol = saved
+    return captured["harvest"], captured["stats"]
+
+
+def reference_union_selection(packed) -> list:
+    """The device half's answer in the reference: the shipped fused
+    union ``make_fused_planner(with_repair(plan_ffd, rounds))`` on the
+    harvested tick, its selection vector."""
+    from k8s_spot_rescheduler_tpu.solver.fallback import with_repair
+    from k8s_spot_rescheduler_tpu.solver.ffd import plan_ffd
+    from k8s_spot_rescheduler_tpu.solver.select import make_fused_planner
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    fused = make_fused_planner(
+        with_repair(plan_ffd, ReschedulerConfig().repair_rounds))
+    return np.asarray(fused(packed), np.int32).tolist()
+
+
+def freeze_bench_harvest(seed: int) -> dict:
+    """``--replay-device-only`` at ``BENCH_HARVEST_EVENTS`` events: the
+    harvested tick, written to ``HARVEST_PATH`` in the reference's cache
+    format, and the reference's union selection on it."""
+    harvest, stats = reference_harvest(
+        testing.BENCH_HARVEST_EVENTS, seed, testing.HARVEST_PATH)
+    packed = harvest["packed"]
+    selection = reference_union_selection(packed)
+    C, K, R = packed.slot_req.shape
+    out = {
+        "events": testing.BENCH_HARVEST_EVENTS,
+        "unproven": int(harvest["unproven"]),
+        "bf_only": bool(harvest["bf_only"]),
+        "tick_shape": {"C": int(C), "K": int(K),
+                       "S": int(packed.spot_free.shape[0]), "R": int(R)},
+        "selection": selection,
+        "feasible": int(selection[2]),
+        "replay_ticks": int(stats["ticks"]),
+    }
+    print(f"harvest: {out['tick_shape']} unproven {out['unproven']} "
+          f"bf_only {out['bf_only']} feasible {out['feasible']}",
+          file=sys.stderr)
+    return out
+
+
+CARRY_KEYS = ("carry_chunks", "carry_plane_bytes", "feasible_lanes",
+              "valid_lanes")
+
+
+def reference_carry_wall(config_id: int, scale: float, chunks: int,
+                         seed: int) -> dict:
+    """``bench.py --carry-wall`` (one repeat; ``chunks`` 0 = the
+    ladder's count): its count fields and its bucket key."""
+    row = _root_row(_root_bench().run_carry_wall, argparse.Namespace(
+        config=config_id, scale=scale, seed=seed, carry_chunks=chunks,
+        repeats=1, solver=None), "carry_union_wall_ms", "ms")
+    out = {k: row[k] for k in CARRY_KEYS}
+    (out["bucket"],) = row["twin_calibration"]
+    return out
+
+
+def freeze_bench_carry(seed: int) -> dict:
+    """``--carry-wall --config BENCH_CARRY_CONFIG`` at
+    ``BENCH_CARRY_CHUNKS`` chunks and at the ladder's count."""
+    out = {"config": testing.BENCH_CARRY_CONFIG, "scale": 1.0}
+    for key, chunks in (("pinned", testing.BENCH_CARRY_CHUNKS),
+                        ("ladder", 0)):
+        out[key] = reference_carry_wall(testing.BENCH_CARRY_CONFIG, 1.0,
+                                        chunks, seed)
+        print(f"carry-wall {key}: {out[key]}", file=sys.stderr)
+    return out
+
+
+def reference_smoke(seed: int) -> dict:
+    """``bench.py --smoke``'s pipeline without its audit subprocesses:
+    five incremental ticks of the JAX planner on the smoke cluster, each
+    tick's upload bytes (the reference pads a delta to power-of-two
+    lengths), delta lanes, repack flag and staged chunks."""
+    import dataclasses
+
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS
+
+    root_bench = _root_bench()
+    spec = dataclasses.replace(CONFIGS[2], name="bench-smoke",
+                               n_on_demand=64, n_spot=64, n_pods=600)
+    _, _, _, client, store, pdbs = root_bench.build_problem(2, seed, spec=spec)
+    _, reports, _, _ = root_bench.run_incremental_ticks(
+        client, store, pdbs, spec, "jax", n_ticks=5, churn=3,
+        staged_chunk_lanes=16)
+    return {
+        "upload_bytes": [int(r.upload_bytes) for r in reports],
+        "delta_pack_lanes": [int(r.delta_pack_lanes) for r in reports],
+        "full_repack": [bool(r.full_repack) for r in reports],
+        "chunks_solved": [int(r.chunks_solved) for r in reports],
+        "chunks_skipped": [int(r.chunks_skipped) for r in reports],
+    }
+
+
+def freeze_bench_smoke(seed: int) -> dict:
+    """``--smoke``'s ticks and ``--pallas-smoke``'s parity row (the
+    Pallas kernel interpreted on the CPU)."""
+    out = reference_smoke(seed)
+    parity = _root_bench().pallas_parity_smoke(seed=seed)
+    out["pallas"] = {k: parity[k] for k in ("ok", "cases", "checks",
+                                            "chunk_counts", "mismatches")}
+    print(f"smoke: {out}", file=sys.stderr)
+    return out
+
+
+def freeze_bench_soak(seed: int) -> dict:
+    """``--chaos`` and ``--watch-soak`` at ``BENCH_SOAK_TICKS`` ticks:
+    every count of the chaos row, and the watch soak's stats and
+    violations."""
+    root_bench = _root_bench()
+    n = testing.BENCH_SOAK_TICKS
+    row = _root_row(root_bench.run_chaos, argparse.Namespace(
+        chaos_ticks=n, seed=seed), "chaos_soak_completed_ticks", "count")
+    chaos = {k: v for k, v in row.items()
+             if k not in ("metric", "unit", "vs_baseline", "wall_s",
+                          "backend_attestation")}
+    stats, violations = root_bench.watch_soak(n, seed)
+    out = {"ticks": n, "chaos": chaos,
+           "watch": {"stats": stats, "violations": violations}}
+    print(f"soak: {out}", file=sys.stderr)
+    return out
+
+
 BENCH_PARTS = {
     "quality": freeze_bench_quality,
     "replay": freeze_bench_replay,
     "chain": freeze_bench_chain,
     "scale": freeze_bench_scale,
+    "harvest": freeze_bench_harvest,
+    "carry": freeze_bench_carry,
+    "smoke": freeze_bench_smoke,
+    "soak": freeze_bench_soak,
 }
 
 
