@@ -140,7 +140,17 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    ``--smoke``, ``--pallas-smoke`` (B4 and B1 against the plain streamed
    pass and the oracles), ``--chaos`` and ``--watch-soak`` at 300 ticks,
    every count held against the JAX package's frozen rows, each row's
-   JSON on its own line.
+   JSON on its own line;
+12. the root ``bench.py``'s service-side modes in the same bench:
+   ``--serve-smoke`` (4 tenants through a ``ServiceServer`` on the card
+   over HTTP, co-batched on B1t/B2t, the delta-wire ticks and the
+   pooled-reuse phase), ``--sched-smoke``, ``--fleet-chaos`` (two
+   replicas on the card through six failure phases),
+   ``--fleet-twin-smoke --twin-calibration`` (fed phase 11's carry-wall
+   rows) and ``--storm-smoke``, each count and selection held against
+   the JAX package's frozen rows, each row's JSON on its own line.
+   B1/B2's and B1t/B2t's ``launches`` in the ``kernels`` line add this
+   phase's.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -2625,7 +2635,11 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
         f"package's; launches {launches}; {wall:.1f} s, on {kind} [{card}]")
 
     # ---- --carry-wall on config 3, pinned and the ladder's count -------
+    # (both rows also go to CARRY_ROWS: phase 12's --twin-calibration)
     carry = frozen["carry"]
+    rows_path = os.path.join(here, CARRY_ROWS)
+    if os.path.exists(rows_path):
+        os.remove(rows_path)
     for key, extra in (("pinned", ("--carry-chunks",
                                    str(testing.BENCH_CARRY_CHUNKS))),
                        ("ladder", ())):
@@ -2633,6 +2647,8 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
         row, wall, launches = drive(tag.strip(), "--carry-wall", "--config",
                                     str(carry["config"]), *extra,
                                     kernels=("B3", "B4"))
+        with open(rows_path, "a") as f:
+            f.write(json.dumps(bench.drop_non_finite(row)) + "\n")
         got = {k: row[k] for k in CARRY_KEYS}
         check(got == carry[key], f"[11] bench {tag}: {got} != the JAX "
               f"package's {carry[key]}")
@@ -2715,6 +2731,214 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
         f"{row['full_lists']} LISTs, mirror parity {row['mirror_parity']}; "
         f"every stat == the JAX package's; soak {row['wall_s']:.2f} s; "
         f"launches {launches}; on {kind} [{card}]")
+    return total
+
+
+CARRY_ROWS = os.path.join("build", "bench_modes", "carry_wall.jsonl")
+# the reference's one fleet-twin check a threaded run's timing decides
+# (its heavier phase's queue-wait p99 above the lighter one's): printed,
+# not held
+P99_ORDER = "degenerate queue-wait curve"
+
+
+def service_modes_phase(np, torch, fk, kind, card, here, full_twin: bool):
+    """Phase 12: the root ``bench.py``'s service-side modes in the port's
+    bench (by its ``run``) on the card, each with the launch counts set to
+    0 just before and read just after and the attestation naming the
+    card, against the JAX package's frozen rows (``data/bench_seed0.json``
+    parts ``serve``, ``sched``, ``fleet``, ``edges``):
+
+    - ``--serve-smoke``: the solo selections and lanes, the full, quiet,
+      churn and resync ticks' wire bytes, the resyncs, the applied deltas
+      and the pooled reuses (100 + 25 ticks, as frozen) equal; no
+      mismatch, no fallback, the trace trees whole, a batch of two
+      tenants or more (B1t/B2t launch); the pooled-vs-fresh wall race of
+      its ``reuse_ok`` is printed, not held;
+    - ``--sched-smoke``: drains, fetches, bound, schedule lengths,
+      invalidations and the schedule cut equal, no violation;
+    - ``--fleet-chaos``: every count equal, the agents' 5 scripted local
+      fallbacks and 18 failovers included, but ``recovered_after_ticks``
+      1 and ``ticks`` 27 (JAX 2 and 28): no batch leaves the card while
+      it is sick, so the first two batches after the sick phase are both
+      healthy probes;
+    - ``--fleet-twin-smoke --twin-calibration`` (phase 11's carry-wall
+      rows) and ``--storm-smoke``: no crash, no mismatch, every ledger
+      equal, the shed edges' per-reason deltas equal; ``full_twin`` adds
+      ``--fleet-twin`` (512 twins).
+
+    Each row's JSON on its own line. Returns the phase's launches."""
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.bench import __main__ as bench
+
+    frozen = testing.load_bench()
+    total = {k: 0 for k in fk.LAUNCHES}
+
+    def drive(tag, *argv, fallbacks=0, kernels=("B1", "B2"), ok=True):
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, row = bench.run(["--device", "cuda", *argv])
+        wall = time.perf_counter() - t0
+        launches = dict(fk.LAUNCHES)
+        print(json.dumps(bench.drop_non_finite(row)), flush=True)
+        if ok:
+            check(rc == 0, f"[12] bench {tag}: exit {rc}: "
+                  f"{row.get('failures') or row.get('violations')}")
+        check(all(launches[k] > 0 for k in kernels),
+              f"[12] bench {tag}: {kernels} did not all launch: {launches}")
+        check(row["launches"] == launches,
+              f"[12] bench {tag}: the row's launches {row['launches']} != "
+              f"the counters {launches}")
+        att = row["backend_attestation"]
+        check(att["solve_backend"] == f"cuda/{kind}"
+              and att.get("nvidia_smi") == card,
+              f"[12] bench {tag}: attestation {att} does not name {kind} "
+              f"[{card}]")
+        check(att["planner_fallbacks"] == 0
+              and att["remote_planner_fallbacks"] == fallbacks,
+              f"[12] bench {tag}: fallback counters {att} (want "
+              f"{fallbacks} agent fallbacks)")
+        for k in total:
+            total[k] += launches[k]
+        return rc, row, wall, launches
+
+    # ---- --serve-smoke -------------------------------------------------
+    want = frozen["serve"]
+    rc, row, wall, launches = drive("--serve-smoke", "--serve-smoke",
+                                    kernels=("B1", "B2", "B1t", "B2t"),
+                                    ok=False)
+    for key in ("selections", "solo_lanes", "full_tick_bytes",
+                "quiet_tick_bytes", "churn_tick_bytes", "resync_tick_bytes",
+                "delta_applied", "delta_resyncs", "wire_reuse",
+                "wire_reconnects", "wire_pooled_conns", "remote_fallbacks",
+                "mismatches", "delta_mismatches", "trace_violations",
+                "wire_ok", "reuse_ticks", "fresh_ticks"):
+        check(row[key] == want[key], f"[12] --serve-smoke {key}: {row[key]} "
+              f"!= the JAX package's {want[key]}")
+    check(row["reuse_counts_ok"] and row["batch_tenants_max"] >= 2
+          and row["batch_lanes_max"] > max(row["solo_lanes"]),
+          f"[12] --serve-smoke: reuse counts {row['reuse_counts_ok']}, "
+          f"batch tenants {row['batch_tenants_max']}, lanes "
+          f"{row['batch_lanes_max']} (solo {row['solo_lanes']})")
+    check(rc == (0 if row["reuse_ok"] else 1) and (
+        row["ok"] == row["reuse_ok"]),
+          f"[12] --serve-smoke: exit {rc} with reuse_ok {row['reuse_ok']}")
+    log(f"[12] bench --serve-smoke ({row['metric']} = {row['value']} ms, the "
+        f"median agent plan of the first tick through the 0.5 s window): "
+        f"{row['n_tenants']} tenants, batch of {row['batch_tenants_max']} "
+        f"tenants / {row['batch_lanes_max']} lanes; spans queue "
+        f"{row['span_queue_ms']} solve {row['span_solve_ms']} wire "
+        f"{row['span_wire_ms']} ms; wire bytes full {row['full_tick_bytes']} "
+        f"quiet {row['quiet_tick_bytes']} churn {row['churn_tick_bytes']} "
+        f"resync {row['resync_tick_bytes']}, {row['delta_applied']} deltas "
+        f"applied, {row['delta_resyncs']} resyncs, {row['wire_reuse']} pooled "
+        f"reuses: every count and selection == the JAX package's; "
+        f"wire.request pooled {row['span_wire_pooled_ms']} ms vs fresh "
+        f"{row['span_wire_fresh_ms']} ms (reuse_ok {row['reuse_ok']}, exit "
+        f"{rc}); launches {launches}; {wall:.1f} s, on {kind} [{card}]")
+
+    # ---- --sched-smoke -------------------------------------------------
+    want = dict(frozen["sched"])
+    rc, row, wall, launches = drive("--sched-smoke", "--sched-smoke")
+    check(not want.pop("violations") and "violations" not in row,
+          f"[12] --sched-smoke violations: {row.get('violations')}")
+    got = {k: row[k] for k in want}
+    check(got == want, f"[12] --sched-smoke: {got} != the JAX package's")
+    log(f"[12] bench --sched-smoke ({row['metric']} = {row['value']}): "
+        f"{row['drains']} drains in {row['fetches_total']} fetches (bound "
+        f"{row['fetch_bound']}), schedule lens {row['schedule_lens']}, "
+        f"{row['invalidations']} invalidation, the {len(row['schedule_cut'])}"
+        f"-step cut over the wire == the local cut; every count == the JAX "
+        f"package's; {row['failovers']} failover with a schedule in flight; "
+        f"launches {launches}; {wall:.1f} s, on {kind} [{card}]")
+
+    # ---- --fleet-chaos -------------------------------------------------
+    want = dict(frozen["fleet"])
+    named = {"recovered_after_ticks": (1, 2), "ticks": (27, 28)}
+    rc, row, wall, launches = drive("--fleet-chaos", "--fleet-chaos",
+                                    fallbacks=want["fallbacks"])
+    for key, (port, jax) in named.items():
+        check((row[key], want[key]) == (port, jax),
+              f"[12] --fleet-chaos {key}: {row[key]} (the JAX package's "
+              f"{want[key]}; want {port} on the card)")
+    for key in ("n_agents", "sick_detect_ticks", "sick_detect_batches",
+                "failovers", "fallbacks", "delta_resyncs", "corrupt_resyncs",
+                "half_close_strikes", "half_close_reconnects",
+                "flight_eq_metrics", "flight_deltas", "selections",
+                "primary_back", "device_end_state", "crashes", "mismatches"):
+        check(row[key] == want[key], f"[12] --fleet-chaos {key}: {row[key]} "
+              f"!= the JAX package's {want[key]}")
+    check(row["warmed_bucket_keys"] == want["warmed_buckets"],
+          f"[12] --fleet-chaos warmed {row['warmed_bucket_keys']}")
+    log(f"[12] bench --fleet-chaos ({row['metric']} = {row['value']} ms, the "
+        f"median agent tick while replica A is down): {row['ticks']} ticks, "
+        f"sick after {row['sick_detect_batches']} batches, recovered after "
+        f"{row['recovered_after_ticks']} tick (the JAX package's 2: no host "
+        f"path on the card), {row['failovers']} failovers, "
+        f"{row['fallbacks']} local fallbacks, {row['half_close_strikes']} "
+        f"half-close strikes / {row['half_close_reconnects']} reconnects, "
+        f"{row['delta_resyncs']} resyncs, warmed {row['warmed_bucket_keys']}; "
+        f"every other count == the JAX package's; launches {launches}; "
+        f"{wall:.1f} s, on {kind} [{card}]")
+
+    # ---- the fleet twin ------------------------------------------------
+    edges = frozen["edges"]
+
+    def twin_checks(tag, row):
+        check(row["crashes"] == 0 and row["mismatches"] == [],
+              f"[12] {tag}: crashes {row['crashes']}, mismatches "
+              f"{row['mismatches']}")
+        held = [f for f in row["failures"] if not f.startswith(P99_ORDER)]
+        check(held == [], f"[12] {tag}: {held}")
+        if "shed_edge_metric_delta" in row:
+            check(row["shed_edge_metric_delta"] == edges["metric_delta"]
+                  and row["shed_edge_flight_delta"] == edges["flight_delta"],
+                  f"[12] {tag}: shed edges {row['shed_edge_metric_delta']} / "
+                  f"{row['shed_edge_flight_delta']} != the JAX package's "
+                  f"{edges['metric_delta']}")
+        return [f for f in row["failures"] if f.startswith(P99_ORDER)]
+
+    def curve(row):
+        return " / ".join(
+            f"{r['active_twins']} twins: occupancy {r['occupancy']}, p99 "
+            f"{r['queue_wait_p99_ms']} ms" for r in row["capacity_curve"])
+
+    cal = os.path.join(here, CARRY_ROWS)
+    rc, row, wall, launches = drive(
+        "--fleet-twin-smoke", "--fleet-twin-smoke", "--twin-calibration", cal,
+        kernels=("B1", "B2", "B1t", "B2t"), ok=False)
+    p99 = twin_checks("--fleet-twin-smoke", row)
+    check(rc == (1 if p99 else 0), f"[12] --fleet-twin-smoke: exit {rc}")
+    log(f"[12] bench --fleet-twin-smoke --twin-calibration ({row['metric']} "
+        f"= {row['value']}): {row['ever_active']} twins x {row['replicas']} "
+        f"replicas, {row['sim_s']} s simulated in {row['wall_s']} s; "
+        f"{curve(row)}; jain {row['jain_fleet']}; {row['verified_selections']} "
+        f"spot checks == a solo TorchSolverPlanner; {row['failovers']} "
+        f"failovers; restart storm {row['resync_storm']}; "
+        f"{row['calibrated_batches']} batches charged a carry-wall cost (no "
+        f"twin lands in config 3's bucket); shed edges == the JAX package's; "
+        f"p99 order: {p99 or 'held'}; launches {launches}; {wall:.1f} s, on "
+        f"{kind} [{card}]")
+    rc, row, wall, launches = drive(
+        "--storm-smoke", "--storm-smoke",
+        kernels=("B1", "B2", "B1t", "B2t"), ok=False)
+    p99 = twin_checks("--storm-smoke", row)
+    check(rc == (1 if p99 else 0), f"[12] --storm-smoke: exit {rc}")
+    log(f"[12] bench --storm-smoke ({row['metric']} = {row['value']}): "
+        f"{row['n_twins']} twins, {row['sim_s']} s simulated in "
+        f"{row['wall_s']} s; restart storm {row['resync_storm']}; "
+        f"{row['verified_selections']} spot checks; shed edges == the JAX "
+        f"package's; p99 order: {p99 or 'held'}; launches {launches}; "
+        f"{wall:.1f} s, on {kind} [{card}]")
+    if full_twin:
+        rc, row, wall, launches = drive(
+            "--fleet-twin", "--fleet-twin",
+            kernels=("B1", "B2", "B1t", "B2t"), ok=False)
+        p99 = twin_checks("--fleet-twin", row)
+        check(rc == (1 if p99 else 0), f"[12] --fleet-twin: exit {rc}")
+        log(f"[12] bench --fleet-twin ({row['metric']} = {row['value']}): "
+            f"{row['ever_active']} twins, {row['sim_s']} s simulated in "
+            f"{row['wall_s']} s; {curve(row)}; p99 order: {p99 or 'held'}; "
+            f"launches {launches}; {wall:.1f} s, on {kind} [{card}]")
     return total
 
 
@@ -3005,15 +3229,20 @@ def main() -> int:
     phase_done("10 (bench)")
     modes_launches = bench_modes_phase(np, torch, fk, kind, card, here)
     phase_done("11 (bench modes)")
+    fleet_launches = service_modes_phase(np, torch, fk, kind, card, here,
+                                         full_twin=False)
+    phase_done("12 (service-side bench modes)")
     # the main path: the controller tick observing through the mirror,
     # fed by the fake cluster (phase 6) and by the watch (phase 7)
     mirror = {k: tick_launches["columnar"][k] + kube_launches[k]
               for k in kube_launches}
     out = []
     for name, launches, path in (
-        ("B1", mirror["B1"] + bench_launches["B1"] + modes_launches["B1"],
+        ("B1", mirror["B1"] + bench_launches["B1"] + modes_launches["B1"]
+         + fleet_launches["B1"],
          "controller tick on the mirror, and the bench"),
-        ("B2", mirror["B2"] + bench_launches["B2"] + modes_launches["B2"],
+        ("B2", mirror["B2"] + bench_launches["B2"] + modes_launches["B2"]
+         + fleet_launches["B2"],
          "controller tick on the mirror, and the bench"),
         ("B3", stream_launches["B3"] + modes_launches["B3"],
          "streamed union, and the bench's carry wall"),
@@ -3036,14 +3265,19 @@ def main() -> int:
                 chaos_launches[name],
             "bench (phase 10)": bench_launches.get(name, 0),
             "bench modes (phase 11)": modes_launches[name],
+            "service-side bench modes (phase 12)": fleet_launches[name],
         }
         out.append(row)
     for name in ("B1t", "B2t"):
         row = dict(service_rows[name])
+        row["launches"] += fleet_launches[name]
+        row["path"] = ("planner service batch (phase 8), and the service-"
+                       "side bench modes (phase 12)")
         row["launches_by_path"] = {
             "planner service batch (phase 8)": service_launches[name],
             "planner service under the service fault layer (phase 8)":
-                service_chaos_launches[name]}
+                service_chaos_launches[name],
+            "service-side bench modes (phase 12)": fleet_launches[name]}
         out.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -53,6 +53,25 @@ packages compare:
   clock, held to its robustness and freshness invariants (``bench/
   soak``). Metrics ``chaos_soak_completed_ticks`` and
   ``watch_soak_completed_ticks``; exit 1 on any violation.
+- ``--serve-smoke [--tenants N]``: ``N`` (at least 4) tenants solo and
+  through a ``ServiceServer`` over HTTP, the delta-wire ticks and the
+  pooled-reuse phase (``bench/service_smoke``). Metric
+  ``serve_smoke_agent_plan_ms``.
+- ``--sched-smoke``: drain schedules locally, over the wire and across a
+  failover (``bench/service_smoke``). Metric
+  ``sched_smoke_fetches_total``.
+- ``--fleet-chaos``: agents x two replicas through the six scripted
+  failure phases (``bench/fleet_chaos``). Metric
+  ``fleet_chaos_failover_ms``.
+- ``--fleet-twin-smoke``, ``--fleet-twin`` and ``--storm-smoke``
+  ``[--tenants N] [--twin-calibration FILE]``: tenant twins against two
+  replicas on a virtual clock (``bench/fleet_twin``); the smokes add the
+  per-reason shed-edge induction. ``--twin-calibration`` reads the
+  ``twin_calibration`` tables of ``--carry-wall`` rows
+  (``load_twin_calibration``; a file without one is an error). Metrics
+  ``fleet_twin_smoke_capacity_tenants_per_device``,
+  ``fleet_twin_capacity_tenants_per_device`` and
+  ``storm_smoke_resync_converge_ticks``.
 
 Every mode plans with ``solver="torch"`` on ``--device`` (``cuda`` by
 default), but for the host half of ``--replay-device-only``, which
@@ -162,6 +181,34 @@ def build_parser() -> argparse.ArgumentParser:
                          "corruption, held to the freshness invariants")
     ap.add_argument("--watch-soak-ticks", type=int, default=300,
                     help="ticks of the --watch-soak run")
+    ap.add_argument("--serve-smoke", action="store_true",
+                    help="N tenants solo and through the planner service "
+                         "over HTTP: bit-identical selections, co-batching, "
+                         "delta-wire bytes and pooled-socket reuse")
+    ap.add_argument("--tenants", type=int, default=4,
+                    help="tenant count for --serve-smoke and --fleet-chaos "
+                         "(at least 4) and for the fleet twin modes")
+    ap.add_argument("--sched-smoke", action="store_true",
+                    help="drain schedules: local parity and fetch bound, "
+                         "churn invalidation, wire bit-identity, failover "
+                         "with a schedule in flight")
+    ap.add_argument("--fleet-chaos", action="store_true",
+                    help="agents x 2 replicas through healthy, half-close, "
+                         "corrupt-delta, wire-chaos, sick-device and "
+                         "replica kill/restart phases")
+    ap.add_argument("--fleet-twin-smoke", action="store_true",
+                    help="64 tenant twins x 2 replicas, ~20 simulated "
+                         "minutes, plus the shed-edge induction")
+    ap.add_argument("--fleet-twin", action="store_true",
+                    help="512 tenant twins x 2 replicas through one "
+                         "simulated hour: the capacity curve")
+    ap.add_argument("--storm-smoke", action="store_true",
+                    help=">= 32 tenant twins x 2 replicas through the "
+                         "restart storm, plus the shed-edge induction")
+    ap.add_argument("--twin-calibration", default="",
+                    help="a file of --carry-wall JSON rows: the fleet "
+                         "twin charges their measured per-bucket solve "
+                         "seconds instead of the modelled cost")
     return ap
 
 
@@ -174,6 +221,18 @@ def metric_for(args) -> tuple:
         return "watch_soak_completed_ticks", "count"
     if args.smoke:
         return "bench_smoke_delta_upload_bytes", "bytes"
+    if args.serve_smoke:
+        return "serve_smoke_agent_plan_ms", "ms"
+    if args.sched_smoke:
+        return "sched_smoke_fetches_total", "count"
+    if args.fleet_chaos:
+        return "fleet_chaos_failover_ms", "ms"
+    if args.fleet_twin_smoke:
+        return "fleet_twin_smoke_capacity_tenants_per_device", "tenants"
+    if args.fleet_twin:
+        return "fleet_twin_capacity_tenants_per_device", "tenants"
+    if args.storm_smoke:
+        return "storm_smoke_resync_converge_ticks", "ticks"
     if args.pallas_smoke:
         return "pallas_parity_wall_s", "s"
     if args.carry_wall:
@@ -205,6 +264,37 @@ def metric_for(args) -> tuple:
             "ms",
         )
     return "drain_plan_ms_config%d%s" % (args.config, suffix), "ms"
+
+
+def load_twin_calibration(path: str) -> dict:
+    """Per-bucket measured solve costs from a file of bench JSON rows
+    (``--carry-wall`` rows carry a ``twin_calibration`` table: bucket key
+    -> {"solve_s": measured seconds}). Later lines win on key
+    collisions; lines that are not JSON are skipped (bench output
+    interleaves logs with rows). A missing file, or one without a
+    table, is an error: a calibrated fleet run must not fall back to the
+    modelled cost line unnoticed."""
+    table: dict = {}
+    with open(path, "r", encoding="utf-8") as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                row = json.loads(line)
+            except ValueError:
+                continue
+            cal = row.get("twin_calibration") if isinstance(row, dict) else None
+            if isinstance(cal, dict):
+                for key, cost in cal.items():
+                    if isinstance(cost, dict) and "solve_s" in cost:
+                        table[str(key)] = {"solve_s": float(cost["solve_s"])}
+    if not table:
+        raise ValueError(
+            f"no twin_calibration tables found in {path!r} "
+            f"(expected --carry-wall JSON rows)"
+        )
+    return table
 
 
 # --- attestation and the one JSON line ------------------------------------
@@ -802,6 +892,23 @@ def run(argv=None) -> tuple:
             from k8s_spot_rescheduler_tpu_torch.bench.smoke import run_smoke
 
             mode = run_smoke
+        elif args.serve_smoke or args.sched_smoke:
+            from k8s_spot_rescheduler_tpu_torch.bench import service_smoke
+
+            mode = (service_smoke.run_serve_smoke if args.serve_smoke
+                    else service_smoke.run_sched_smoke)
+        elif args.fleet_chaos:
+            from k8s_spot_rescheduler_tpu_torch.bench.fleet_chaos import (
+                run_fleet_chaos,
+            )
+
+            mode = run_fleet_chaos
+        elif args.fleet_twin_smoke or args.fleet_twin or args.storm_smoke:
+            from k8s_spot_rescheduler_tpu_torch.bench import fleet_twin
+
+            mode = (fleet_twin.run_fleet_twin_smoke if args.fleet_twin_smoke
+                    else fleet_twin.run_fleet_twin if args.fleet_twin
+                    else fleet_twin.run_storm_smoke)
         elif args.pallas_smoke:
             from k8s_spot_rescheduler_tpu_torch.bench.smoke import (
                 run_pallas_smoke,
@@ -834,7 +941,8 @@ def run(argv=None) -> tuple:
             mode = run_latency
         t0 = time.perf_counter()
         rc, row = mode(args, device, metric, unit)
-        row["wall_s"] = round(time.perf_counter() - t0, 3)
+        # the fleet twin rows keep their own (the fleet loop's) wall
+        row.setdefault("wall_s", round(time.perf_counter() - t0, 3))
     finally:
         if args.trace_dir:
             tracing.disable_profiler()
@@ -848,9 +956,13 @@ def run(argv=None) -> tuple:
 def main(argv=None) -> int:
     from k8s_spot_rescheduler_tpu_torch.device import resolve_device
 
+    args = build_parser().parse_args(argv)
     try:
-        resolve_device(build_parser().parse_args(argv).device)
-    except (RuntimeError, ValueError) as err:
+        resolve_device(args.device)
+        if args.twin_calibration:
+            # a calibrated fleet run without a table fails before it runs
+            load_twin_calibration(args.twin_calibration)
+    except (RuntimeError, ValueError, OSError) as err:
         print(f"Error: {err}", file=sys.stderr)
         return 1
     rc, row = run(argv)

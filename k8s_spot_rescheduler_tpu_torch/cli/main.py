@@ -39,8 +39,11 @@ activities, and the card's where there is one).
 Not in the parser yet, so argparse refuses them, each with the later
 slice that brings it: the mesh and memory ladder (``--mesh-shape``,
 ``--auto-shard``, ``--solver-hbm-budget``, ``--carry-chunks``: multiple
-GPUs, ROADMAP Queue 1 item 7) and ``--debug-endpoints`` (the helpers,
-item 8); the JAX-only ``--jax-cache-dir`` goes.
+GPUs, ROADMAP Queue 1 item 5); the JAX-only ``--jax-cache-dir`` goes.
+
+``--debug-endpoints true`` serves ``/debug/trace`` and ``/debug/flight``
+(redacted) on the ``--serve`` process; off (the default) both answer
+404.
 
 Run e.g.::
 
@@ -294,6 +297,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory the flight recorder auto-dumps a "
                         "redacted JSON postmortem into when a "
                         "degradation edge fires; empty = in-memory only")
+    p.add_argument("--debug-endpoints", type=_bool,
+                   default=d.debug_endpoints,
+                   help="serve GET /debug/trace and /debug/flight on "
+                        "the --serve HTTP server (off by default; debug "
+                        "surfaces are opt-in)")
     p.add_argument("--leader-elect", type=_bool, default=False,
                    help="Lease-based leader election so only one replica "
                         "acts (restores what reference rescheduler.go:139 "
@@ -407,6 +415,7 @@ def config_from_args(args) -> ReschedulerConfig:
         trace_enabled=args.trace_enabled,
         flight_ring_size=args.flight_ring_size,
         flight_dump_dir=args.flight_dump_dir,
+        debug_endpoints=args.debug_endpoints,
         resources=tuple(r for r in args.resources.split(",") if r),
     )
 

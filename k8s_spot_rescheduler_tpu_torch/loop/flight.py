@@ -11,8 +11,9 @@ trace ID of the tick it fired in — and auto-dumps a redacted JSON
 snapshot to ``flight_dump_dir`` whenever a *degradation edge* fires, so
 every degraded tick is a self-contained postmortem file. Live
 inspection: ``/debug/trace`` (last tick tree) and ``/debug/flight``
-(ring summary + dump trigger) on the sidecar/service HTTP servers,
-gated by ``debug_endpoints`` (off by default).
+(ring summary + dump trigger) on the planner service's HTTP server
+(``service/server.py``), gated by ``debug_endpoints``
+(``--debug-endpoints``; off by default, and then both answer 404).
 
 One module-level ``RECORDER`` because one controller (or one planner
 service) runs per process — the same singleton convention as

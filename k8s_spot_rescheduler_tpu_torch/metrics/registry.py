@@ -358,6 +358,17 @@ service_admission_shed = _counter(
     "drain-evict, resync-storm.",
     ["reason"],
 )
+# every reason the counter above can carry, in one importable place:
+# bench/fleet_twin.induce_shed_edges enumerates THIS tuple, so a reason
+# added here without a recipe that fires it fails the fleet smokes
+SHED_REASONS = (
+    "max-inflight",
+    "queue-timeout",
+    "deadline",
+    "drain-refuse",
+    "drain-evict",
+    "resync-storm",
+)
 service_resync_ingest_admitted = _counter(
     "service_resync_ingest_admitted",
     "Full-pack resync ingests admitted through the bounded resync "
@@ -715,6 +726,21 @@ def service_queue_wait_summary(top: int = 16) -> dict:
         "n": len(vals),
         "tenants": service_tenant_wait_snapshot(top=top),
     }
+
+
+def reset_service_window() -> None:
+    """Clear the windowed wait rings and served-count shares (the fleet
+    twin resets at phase boundaries so each occupancy point's
+    percentiles are its own; tests reset for isolation) and the
+    concurrent-resync-ingest high-water. Cumulative counters and the
+    batch run maxima are untouched."""
+    with _LOCK:
+        _tenant_waits.clear()
+        _window_waits.clear()
+        _tenant_served.clear()
+        _resync_ingest_max["inflight"] = 0
+    service_queue_wait_p50.set(0.0)
+    service_queue_wait_p99.set(0.0)
 
 
 def update_service_tenant_eviction(tenant: str) -> None:

@@ -45,7 +45,9 @@ import random
 import socket
 import threading
 import time
+import urllib.error
 import urllib.parse
+import urllib.request
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,9 +72,10 @@ class RemoteCallError(Exception):
         self.retry_after = float(retry_after)
 
 
-class _Endpoint:
-    """Per-endpoint breaker state: failures at replica A must not make
-    the agent skip replica B. ``acked_fp`` is the fingerprint of the
+class Endpoint:
+    """Per-endpoint breaker state (also the fleet's tenant twins',
+    ``service/twin.py``): failures at replica A must not make the agent
+    skip replica B. ``acked_fp`` is the fingerprint of the
     last pack THIS endpoint acknowledged (full upload or applied
     delta) — the delta wire ships churn only to an endpoint whose
     acknowledged state IS the delta's base, so a failover target (or a
@@ -394,6 +397,12 @@ class PooledWireTransport:
         self._tls.last_call = None
         return info
 
+    def connection_count(self) -> int:
+        """Live pooled connections, across endpoints (at most one an
+        endpoint)."""
+        with self._lock:
+            return len(self._conns)
+
     def break_idle(self) -> int:
         """OS-level half-close of every pooled connection with no reply
         in flight, LEAVING it in the pool — exactly what a server-side
@@ -458,8 +467,8 @@ class RemotePlanner:
     ):
         self.config = config
         raw = url or config.planner_urls or config.planner_url
-        self._endpoints: List[_Endpoint] = [
-            _Endpoint(u.strip()) for u in raw.split(",") if u.strip()
+        self._endpoints: List[Endpoint] = [
+            Endpoint(u.strip()) for u in raw.split(",") if u.strip()
         ]
         if not self._endpoints:
             raise ValueError("RemotePlanner needs a planner service url")
@@ -472,7 +481,10 @@ class RemotePlanner:
         self.clock = clock or RealClock()
         # seam: (url, body, headers, timeout) -> reply bytes; raises
         # RemoteCallError for HTTP errors. Default = the persistent
-        # keep-alive pool; service/chaos.py wraps it, handed the pool.
+        # keep-alive pool; _transport_urllib stays as the fresh-
+        # connection-per-request baseline (bench/service_smoke.
+        # serve_smoke measures the pool against it in the same run);
+        # service/chaos.py wraps either, handed the pool.
         self._wire_pool = PooledWireTransport()
         self.transport = self._wire_pool
         if config.service_chaos_profile not in ("", "off", "none"):
@@ -549,7 +561,7 @@ class RemotePlanner:
         )
 
     def _note_failure(
-        self, ep: _Endpoint, why: str, retry_after: float = 0.0
+        self, ep: Endpoint, why: str, retry_after: float = 0.0
     ) -> None:
         ep.consecutive_failures += 1
         # one bad LB header must not stall failback for hours: the
@@ -586,7 +598,7 @@ class RemotePlanner:
                 "planner endpoint %s call failed: %s", ep.url, why
             )
 
-    def _note_success(self, ep: _Endpoint) -> None:
+    def _note_success(self, ep: Endpoint) -> None:
         if ep.consecutive_failures:
             log.info(
                 "planner endpoint %s healthy again after %d failed call(s)",
@@ -594,6 +606,36 @@ class RemotePlanner:
             )
         ep.consecutive_failures = 0
         ep.skip_until = 0.0
+
+    def _transport_urllib(
+        self, url: str, body: bytes, headers: dict, timeout: float
+    ) -> bytes:
+        """The fresh-connection-per-request baseline: one urllib POST,
+        reply bytes back. HTTP error statuses become
+        :class:`RemoteCallError` carrying any 503 Retry-After;
+        everything else propagates as-is."""
+        req = urllib.request.Request(
+            url, data=body, headers=headers, method="POST"
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                return resp.read()
+        except urllib.error.HTTPError as err:
+            retry_after = 0.0
+            if err.code == 503:
+                try:
+                    retry_after = float(err.headers.get("Retry-After", 0))
+                except (TypeError, ValueError):
+                    retry_after = 0.0
+            detail = ""
+            try:
+                wire.decode_plan_reply(err.read())
+            except wire.WireError as werr:
+                detail = str(werr)
+            raise RemoteCallError(
+                f"HTTP {err.code}{': ' + detail if detail else ''}",
+                retry_after,
+            ) from err
 
     def _pack_observation(self, observation, pdbs):
         """The shared pack path (planner/base.pack_observation) with

@@ -66,8 +66,15 @@ thread (``start_scheduler``) assembles, scatters and solves, with the
 service's CUDA device set on it. Without a scheduler thread
 (``drain_once`` from the caller: the virtual-clock seam of the tests and
 of in-process callers) the caller's thread solves. Not ported here: the
-tenant mesh (one device: ``_ensure_mesh`` is None) and the ``/debug/*``
-endpoints (404).
+tenant mesh (one device: ``_ensure_mesh`` is None).
+
+Debug surface (``debug_endpoints``, ``--debug-endpoints``; off by
+default, and then both paths answer 404): ``GET /debug/trace`` answers
+the flight recorder's last tick tree and the last 32 requests' server
+span blocks keyed by the agent's trace ID (``note_request_trace``, the
+tenant id hashed), ``GET /debug/flight`` the redacted ring summary
+(``?dump=1`` also writes a postmortem) — ``loop/flight.py``'s redaction
+policy, as in the JAX package.
 
 Chaos (``service/chaos.py``, ``--service-chaos-profile``): a seeded
 ``ServiceChaos`` runs inside the timed solve window (``on_batch``:
@@ -945,6 +952,7 @@ class PlannerService:
             "queued": queued,  # requests waiting when the batch was cut
             "cap": cap,
             "tenants": [r.tenant for r in batch],
+            "lanes": lanes,  # the batch's valid lanes (DRR cost)
             "horizon": batch[0].horizon,
             "queue_wait_ms": waits_ms,
             "assemble_ms": (split["t_solve"] - split["t0"]) * 1e3,
@@ -1895,6 +1903,11 @@ class ServiceServer:
             ring_size=config.flight_ring_size,
             dump_dir=config.flight_dump_dir,
         )
+        # the last few requests' server-side span blocks, keyed by the
+        # agent trace ID that sent them (/debug/trace on a service that
+        # has no tick of its own)
+        self._recent_lock = threading.Lock()
+        self._recent: deque = deque(maxlen=32)
         # live accepted sockets: with keep-alive a handler thread stays
         # parked in readline() between requests, so closing the listener
         # alone would leave pooled agent connections happily served by a
@@ -1964,7 +1977,29 @@ class ServiceServer:
                     out.update(server.service.healthz_snapshot())
                     out.update(health.STATE.snapshot())
                     return self._send_json(out)
-                # /debug/* comes with --debug-endpoints, not ported
+                if self.path.startswith("/debug/"):
+                    return self._debug_get()
+                return self._send_json({"error": "not found"}, 404)
+
+            def _debug_get(self):
+                """/debug/trace (last tick tree + recent server span
+                blocks) and /debug/flight (ring summary; ?dump=1 writes
+                a postmortem). Gated off by default: 404, not 403, so a
+                disabled surface is indistinguishable from an absent
+                one."""
+                if not server.config.debug_endpoints:
+                    return self._send_json({"error": "not found"}, 404)
+                path, _, query = self.path.partition("?")
+                if path == "/debug/trace":
+                    return self._send_json({
+                        "last_tick": flight.last_tick(),
+                        "recent_requests": server.recent_request_traces(),
+                    })
+                if path == "/debug/flight":
+                    out = flight.snapshot()
+                    if "dump=1" in query.split("&"):
+                        out["dumped"] = flight.dump("debug-endpoint")
+                    return self._send_json(out)
                 return self._send_json({"error": "not found"}, 404)
 
             def _reject_unread(self, obj, code, headers=()):
@@ -2197,6 +2232,7 @@ class ServiceServer:
                     spans = spans + (
                         tracing.make_span("service.encode", 0.0, encode_ms),
                     )
+                    server.note_request_trace(trace_id, req.tenant, spans)
                     return self._send_bytes(
                         encode(
                             reply._replace(spans=spans),
@@ -2289,6 +2325,7 @@ class ServiceServer:
                     spans = spans + (
                         tracing.make_span("service.encode", 0.0, encode_ms),
                     )
+                    server.note_request_trace(trace_id, dreq.tenant, spans)
                     return self._send_bytes(
                         wire.encode_plan_reply(
                             reply._replace(spans=spans),
@@ -2392,6 +2429,26 @@ class ServiceServer:
                 admitted=True,
             )
             return True, 0, per
+
+    def note_request_trace(self, trace_id: str, tenant: str, spans) -> None:
+        """Remember one request's server-side span block, keyed by the
+        agent's trace ID (/debug/trace on the service process). The
+        tenant id is client-supplied and /debug responses may leave the
+        process, so it rides hashed per the redaction policy."""
+        entry = {
+            "trace_id": trace_id,
+            "tenant": flight.redact_text(tenant),
+            "spans": [
+                {"name": n, "t0_ms": round(t0, 3), "dur_ms": round(d, 3)}
+                for n, t0, d in spans
+            ],
+        }
+        with self._recent_lock:
+            self._recent.append(entry)
+
+    def recent_request_traces(self) -> list:
+        with self._recent_lock:
+            return list(self._recent)
 
     def release_resync_ingest(self, charge_bytes: int) -> None:
         """Return one resync-ingest token (and its ledger bytes); each

@@ -393,6 +393,14 @@ HARVEST_PATH = os.path.join(
 BENCH_CARRY_CONFIG = 3
 BENCH_CARRY_CHUNKS = 4
 BENCH_SOAK_TICKS = 300
+# the root bench.py's service-side modes, frozen into the same file:
+# ``serve_smoke`` (4 tenants; its pooled-reuse phase at the reference's
+# 100 + 25 ticks), ``sched_smoke``, ``fleet_chaos_smoke`` (4 agents)
+# and ``fleet_twin.induce_shed_edges``: counts, bytes and selections,
+# never wall times
+BENCH_SERVE_TENANTS = 4
+BENCH_SERVE_REUSE = (100, 25)
+BENCH_FLEET_AGENTS = 4
 
 
 def load_bench(path: str | None = None) -> dict:

@@ -10,8 +10,8 @@ one source of the planner's defaults too
 
 Knobs of modules not yet ported are left out, with their modules: the
 mesh and memory ladder (``mesh_shape``, ``auto_shard``,
-``solver_hbm_budget``, ``carry_chunks``) and the debug endpoints
-(``debug_endpoints``); the JAX-only ``jax_cache_dir`` goes.
+``solver_hbm_budget``, ``carry_chunks``); the JAX-only
+``jax_cache_dir`` goes.
 """
 
 from __future__ import annotations
@@ -203,6 +203,11 @@ class ReschedulerConfig:
     # postmortem into whenever a degradation edge fires; empty = never
     # write to disk.
     flight_dump_dir: str = ""
+    # Serve GET /debug/trace (last tick tree + recent server span
+    # blocks) and /debug/flight (ring summary + dump trigger) on the
+    # planner service's HTTP server. Off by default: debug surfaces are
+    # opt-in, never ambient (off, both paths answer 404).
+    debug_endpoints: bool = False
 
     def __post_init__(self):
         from k8s_spot_rescheduler_tpu_torch.utils.labels import validate_label

@@ -342,6 +342,9 @@ METRIC_FLAGS = (
     ["--quality-scale", "--config", "4"], ["--replay-device-only"],
     ["--carry-wall"], ["--carry-wall", "--config", "4", "--scale", "0.5"],
     ["--smoke"], ["--pallas-smoke"], ["--chaos"], ["--watch-soak"],
+    ["--serve-smoke"], ["--serve-smoke", "--tenants", "6"], ["--sched-smoke"],
+    ["--fleet-chaos"], ["--fleet-twin-smoke"], ["--fleet-twin"],
+    ["--storm-smoke"], ["--fleet-twin-smoke", "--twin-calibration", "x"],
 )
 ROOT_FLAGS = ("chaos", "watch_soak", "smoke", "scale_smoke", "serve_smoke",
               "sched_smoke", "fleet_chaos", "fleet_twin_smoke", "fleet_twin",

@@ -386,13 +386,13 @@ def test_cli_refuses_the_flags_of_later_slices():
     the lease are accepted (the drains through a stub server:
     ``tests/test_torch_kube.py``), and so are the planner service's and
     its agents' (``tests/test_torch_service.py``), the fault layers'
-    (``tests/test_torch_chaos.py``) and ``--trace-dir``
-    (``tests/test_torch_tracing.py``)."""
+    (``tests/test_torch_chaos.py``), ``--trace-dir``
+    (``tests/test_torch_tracing.py``) and ``--debug-endpoints``
+    (``tests/test_torch_debug.py``)."""
     for argv in (["--service-chaos-profile", "flaky"],
                  ["--chaos-profile", "flaky"], ["--mesh-shape", "2x2"],
                  ["--auto-shard", "true"], ["--solver-hbm-budget", "1"],
-                 ["--carry-chunks", "2"], ["--debug-endpoints", "true"],
-                 ["--jax-cache-dir", "/tmp/j"]):
+                 ["--carry-chunks", "2"], ["--jax-cache-dir", "/tmp/j"]):
         with pytest.raises(SystemExit) as exc:
             port_main(argv)
         assert exc.value.code == 2, argv
@@ -409,6 +409,10 @@ def test_cli_refuses_the_flags_of_later_slices():
     ]))
     assert (service.planner_urls, service.planner_timeout,
             service.service_batch_window) == ("x,y", 1.0, 1.0)
+    assert not service.debug_endpoints
+    assert config_from_args(build_parser().parse_args(
+        ["--serve", "127.0.0.1:1", "--debug-endpoints", "true"])
+    ).debug_endpoints
 
     args = build_parser().parse_args([
         "--cluster", "kube:http://127.0.0.1:1", "--watch-cache", "false",

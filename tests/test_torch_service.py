@@ -814,9 +814,12 @@ def test_service_flags_flow_into_config_and_refused_flags_stay_refused():
         "heavy", 4)
     for flag in ("--service-chaos-profile", "--chaos-profile", "--mesh-shape",
                  "--auto-shard", "--solver-hbm-budget", "--carry-chunks",
-                 "--debug-endpoints", "--jax-cache-dir"):
+                 "--jax-cache-dir"):
         with pytest.raises(SystemExit):
             build_parser().parse_args([flag, "x"])
+    assert not config_from_args(build_parser().parse_args([])).debug_endpoints
+    assert config_from_args(build_parser().parse_args(
+        ["--debug-endpoints", "true"])).debug_endpoints
     with pytest.raises(ValueError, match="chaos"):
         ReschedulerConfig(service_chaos_profile="flaky")
     with pytest.raises(ValueError):

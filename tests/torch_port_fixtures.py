@@ -66,9 +66,14 @@ reference's own harvest to ``data/replay_harvest_seed0.npz``) with the
 reference union's selection on it, ``--carry-wall`` on config 3 at 4
 chunks and at the ladder's count, ``--smoke``'s ticks and
 ``--pallas-smoke``'s parity row, and ``--chaos`` and ``--watch-soak`` at
-300 ticks; its parts (``bench:quality``, ``bench:replay``,
-``bench:chain``, ``bench:scale``, ``bench:harvest``, ``bench:carry``,
-``bench:smoke``, ``bench:soak``) may run in parallel processes.
+300 ticks; and its service-side modes: ``serve_smoke``'s counts, wire
+bytes and solo selections, ``sched_smoke``'s stats and schedule cut,
+``fleet_chaos_smoke``'s counts and flight deltas, and
+``fleet_twin.induce_shed_edges``'s per-reason deltas (no wall time);
+its parts (``bench:quality``, ``bench:replay``, ``bench:chain``,
+``bench:scale``, ``bench:harvest``, ``bench:carry``, ``bench:smoke``,
+``bench:soak``, ``bench:serve``, ``bench:sched``, ``bench:fleet``,
+``bench:edges``) may run in parallel processes.
 
 Run from the repo root:
 
@@ -1017,6 +1022,124 @@ def freeze_bench_soak(seed: int) -> dict:
     return out
 
 
+def reference_selections(spec, n: int, seed: int, cfg) -> list:
+    """Each of ``n`` tenants' (``generate_cluster(spec, seed + i)``) solo
+    selection on the JAX package's ``SolverPlanner`` under ``cfg``, as
+    [found, node, [[pod uid, spot node], ...]], and its valid lanes."""
+    from k8s_spot_rescheduler_tpu.io.synthetic import generate_cluster
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+
+    solo = SolverPlanner(cfg)
+    out, lanes = [], []
+    for i in range(n):
+        client = generate_cluster(spec, seed + i)
+        store = client.columnar_store(
+            cfg.resources, on_demand_label=cfg.on_demand_node_label,
+            spot_label=cfg.spot_node_label)
+        pdbs = client.list_pdbs()
+        report = solo.plan(store, pdbs)
+        if report.plan is None:
+            out.append([False, None, []])
+        else:
+            out.append([True, report.plan.node.node.name,
+                        sorted([k, v] for k, v in
+                               report.plan.assignments.items())])
+        lanes.append(int(np.asarray(store.pack(pdbs)[0].cand_valid).sum()))
+    return out, lanes
+
+
+SERVE_KEYS = ("n_tenants", "full_tick_bytes", "quiet_tick_bytes",
+              "churn_tick_bytes", "resync_tick_bytes", "delta_applied",
+              "delta_resyncs", "wire_reuse", "wire_reconnects",
+              "wire_pooled_conns", "remote_fallbacks", "solo_lanes_max",
+              "mismatches", "delta_mismatches", "trace_violations",
+              "wire_ok", "reuse_ticks")
+
+
+def freeze_bench_serve(seed: int) -> dict:
+    """``bench.serve_smoke`` (``testing.BENCH_SERVE_TENANTS`` tenants, the
+    reference's 100 pooled + 25 fresh reuse ticks): its counts and wire
+    bytes, and each tenant's solo selection and lanes. Its co-batching
+    maxima and every time are left out (they depend on thread timing)."""
+    import dataclasses
+
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    n = testing.BENCH_SERVE_TENANTS
+    result = _root_bench().serve_smoke(n_tenants=n, seed=seed)
+    out = {k: result[k] for k in SERVE_KEYS}
+    out["fresh_ticks"] = testing.BENCH_SERVE_REUSE[1]
+    assert out["reuse_ticks"] == testing.BENCH_SERVE_REUSE[0]
+    spec = dataclasses.replace(CONFIGS[2], name="serve-smoke",
+                               n_on_demand=8, n_spot=8, n_pods=80)
+    out["selections"], out["solo_lanes"] = reference_selections(
+        spec, n, seed, ReschedulerConfig(resources=spec.resources,
+                                         solver="jax"))
+    print(f"serve: {out}", file=sys.stderr)
+    return out
+
+
+def freeze_bench_sched(seed: int) -> dict:
+    """``bench.sched_smoke``: its stats and violations, and the JAX
+    package's local ``plan_schedule`` cut of its service case as
+    [[index, n_feasible, *row], ...]."""
+    from k8s_spot_rescheduler_tpu.io.synthetic import (
+        QUALITY_CONFIGS,
+        generate_quality_cluster,
+    )
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    stats, violations = _root_bench().sched_smoke(seed)
+    spec = next(iter(QUALITY_CONFIGS.values()))
+    cfg = ReschedulerConfig(solver="numpy", resources=spec.resources,
+                            plan_schedule_enabled=True, schedule_horizon=6)
+    client = generate_quality_cluster(spec, seed, reschedule_evicted=True)
+    store = client.columnar_store(
+        cfg.resources, on_demand_label=cfg.on_demand_node_label,
+        spot_label=cfg.spot_node_label)
+    handle = SolverPlanner(cfg).plan_schedule(store, client.list_pdbs())
+    out = dict(stats)
+    out["violations"] = violations
+    out["schedule_cut"] = [
+        [int(s.index), int(s.n_feasible), *(int(v) for v in s.row)]
+        for s in handle.steps]
+    print(f"sched: {out}", file=sys.stderr)
+    return out
+
+
+def freeze_bench_fleet(seed: int) -> dict:
+    """``bench.fleet_chaos_smoke`` (``testing.BENCH_FLEET_AGENTS``
+    agents): every field but ``failover_ms``, and each tenant's solo
+    selection."""
+    import dataclasses
+
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    n = testing.BENCH_FLEET_AGENTS
+    result = _root_bench().fleet_chaos_smoke(n_agents=n, seed=seed)
+    out = {k: v for k, v in result.items() if k != "failover_ms"}
+    spec = dataclasses.replace(CONFIGS[2], name="fleet-chaos",
+                               n_on_demand=6, n_spot=6, n_pods=48)
+    out["selections"], _ = reference_selections(
+        spec, n, seed, ReschedulerConfig(resources=spec.resources,
+                                         solver="numpy"))
+    print(f"fleet: {out}", file=sys.stderr)
+    return out
+
+
+def freeze_bench_edges(seed: int) -> dict:
+    """``bench/fleet_twin.induce_shed_edges``: the per-reason metric and
+    flight deltas and each probe's outcome."""
+    from k8s_spot_rescheduler_tpu.bench.fleet_twin import induce_shed_edges
+
+    out = induce_shed_edges(seed=seed)
+    print(f"edges: {out}", file=sys.stderr)
+    return out
+
+
 BENCH_PARTS = {
     "quality": freeze_bench_quality,
     "replay": freeze_bench_replay,
@@ -1026,6 +1149,10 @@ BENCH_PARTS = {
     "carry": freeze_bench_carry,
     "smoke": freeze_bench_smoke,
     "soak": freeze_bench_soak,
+    "serve": freeze_bench_serve,
+    "sched": freeze_bench_sched,
+    "fleet": freeze_bench_fleet,
+    "edges": freeze_bench_edges,
 }
 
 
