@@ -91,8 +91,8 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    against a config-1 stub must exit 0 with the frozen drains and
    evicted pods and ``planner_fallback_total=0``. B1/B2's ``launches``
    in the ``kernels`` line are the mirror's path: phase 6's mirror runs
-   and phase 7's runs, with phases 10 and 11's bench runs added (B3/B4's
-   are phase 5's with phase 11's);
+   and phase 7's runs, with phases 10-12's bench runs added (B3/B4's
+   are phase 5's with phases 11 and 12's);
 8. the multi-tenant planner service: the port's ``ServiceServer`` on
    the card (its kernels built before it listens; ``/healthz`` must name
    B1t/B2t) serves 8 agents (``testing.SERVICE_TENANTS``: configs 3 and
@@ -145,12 +145,13 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    ``--serve-smoke`` (4 tenants through a ``ServiceServer`` on the card
    over HTTP, co-batched on B1t/B2t, the delta-wire ticks and the
    pooled-reuse phase), ``--sched-smoke``, ``--fleet-chaos`` (two
-   replicas on the card through six failure phases),
-   ``--fleet-twin-smoke --twin-calibration`` (fed phase 11's carry-wall
-   rows) and ``--storm-smoke``, each count and selection held against
-   the JAX package's frozen rows, each row's JSON on its own line.
-   B1/B2's and B1t/B2t's ``launches`` in the ``kernels`` line add this
-   phase's.
+   replicas on the card through six failure phases), ``--carry-wall
+   --config 1`` (a bucket the twins land in), ``--fleet-twin-smoke
+   --twin-calibration`` (fed that row and phase 11's carry-wall rows; it
+   must charge some batches the measured cost) and ``--storm-smoke``,
+   each count and selection held against the JAX package's frozen rows,
+   each row's JSON on its own line. The ``launches`` in the ``kernels``
+   line add this phase's.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -161,6 +162,7 @@ object of kernel numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -2374,6 +2376,52 @@ def busy_share(path: str) -> dict:
             "copies": sum(e.get("cat") != "kernel" for e in device)}
 
 
+def bench_drive(fk, phase: int, total: dict, kind, card, tag, *argv,
+                kernels=("B1", "B2"), planner_fallbacks=0,
+                remote_fallbacks=0, ok=True):
+    """One run of the port's bench driver (``python -m
+    k8s_spot_rescheduler_tpu_torch.bench``, by its ``run``) on the card in
+    phase ``phase``, with the launch counts set to 0 just before and read
+    just after: each of ``kernels`` must have launched, the row's
+    launches must equal the counters, its attestation must name the card
+    with the device not sick at the end, and its planner and
+    remote-planner fallbacks must be the expected ones. The run must exit
+    0 unless ``ok`` is False (the caller then holds the exit code). The
+    row's JSON is printed on its own line and its launches added to
+    ``total``. Returns (exit code, row, wall seconds, launches)."""
+    from k8s_spot_rescheduler_tpu_torch.bench import __main__ as bench
+
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, row = bench.run(["--device", "cuda", *argv])
+    wall = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    print(json.dumps(bench.drop_non_finite(row)), flush=True)
+    if ok:
+        why = (row.get("error") or row.get("failures")
+               or row.get("violations"))
+        check(rc == 0, f"[{phase}] bench {tag}: exit {rc}: {why}")
+    check(all(launches[k] > 0 for k in kernels),
+          f"[{phase}] bench {tag}: {kernels} did not all launch: {launches}")
+    check(row["launches"] == launches,
+          f"[{phase}] bench {tag}: the row's launches {row['launches']} != "
+          f"the counters {launches}")
+    att = row["backend_attestation"]
+    check(att["solve_backend"] == f"cuda/{kind}"
+          and att.get("nvidia_smi") == card,
+          f"[{phase}] bench {tag}: attestation {att} does not name {kind} "
+          f"[{card}]")
+    check(att["planner_fallbacks"] == planner_fallbacks
+          and att["remote_planner_fallbacks"] == remote_fallbacks
+          and not att["device_sick"],
+          f"[{phase}] bench {tag}: fallback counters {att} (want "
+          f"{planner_fallbacks} planner and {remote_fallbacks} agent "
+          f"fallbacks, the device not sick)")
+    for k in total:
+        total[k] += launches[k]
+    return rc, row, wall, launches
+
+
 def bench_phase(np, torch, fk, kind, card, here):
     """Phase 10: the port's bench driver (``python -m
     k8s_spot_rescheduler_tpu_torch.bench``, by its ``run`` function) on
@@ -2395,38 +2443,14 @@ def bench_phase(np, torch, fk, kind, card, here):
     data = os.path.join(here, "k8s_spot_rescheduler_tpu_torch", "data")
     total = {"B1": 0, "B2": 0}
 
-    def drive(tag, *argv):
-        fk.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc, row = bench.run(["--device", "cuda", *argv])
-        wall = time.perf_counter() - t0
-        launches = dict(fk.LAUNCHES)
-        print(json.dumps(bench.drop_non_finite(row)), flush=True)
-        check(rc == 0, f"[10] bench {tag}: exit {rc}: {row.get('error')}")
-        check(launches["B1"] > 0 and launches["B2"] > 0,
-              f"[10] bench {tag}: B1/B2 did not launch: {launches}")
-        check(row["launches"] == launches,
-              f"[10] bench {tag}: the row's launches {row['launches']} != "
-              f"the counters {launches}")
-        att = row["backend_attestation"]
-        check(att["solve_backend"] == f"cuda/{kind}"
-              and att.get("nvidia_smi") == card,
-              f"[10] bench {tag}: attestation {att} does not name {kind} "
-              f"[{card}]")
-        check(att["planner_fallbacks"] == 0
-              and att["remote_planner_fallbacks"] == 0
-              and not att["device_sick"],
-              f"[10] bench {tag}: fallback counters {att}")
-        for k in total:
-            total[k] += launches[k]
-        return row, wall, launches
+    drive = functools.partial(bench_drive, fk, 10, total, kind, card)
 
     # ---- latency, configs 3 and 4 (and config 3 traced) --------------
     lat = {}
     for config_id in (3, 4):
         _, ans = load_npz(os.path.join(data, f"config{config_id}_seed0.npz"))
-        row, wall, launches = drive(f"--config {config_id}", "--config",
-                                    str(config_id))
+        _, row, wall, launches = drive(f"--config {config_id}", "--config",
+                                       str(config_id))
         check(row["selection"] == ans["selection"].tolist(),
               f"[10] bench --config {config_id}: selection "
               f"{row['selection'][:3]} != frozen {ans['selection'][:3]}")
@@ -2446,8 +2470,8 @@ def bench_phase(np, torch, fk, kind, card, here):
             f"{row['first_candidate']} == frozen; tier {row['tier']}; "
             f"launches {launches}; {wall:.1f} s, on {kind} [{card}]")
     trace_dir = os.path.join(here, "chiprun_out", "bench_traces")
-    row, wall, _ = drive("--config 3 --trace-dir", "--config", "3",
-                         "--trace-dir", trace_dir)
+    _, row, wall, _ = drive("--config 3 --trace-dir", "--config", "3",
+                            "--trace-dir", trace_dir)
     check(row.get("trace_file") and os.path.exists(row["trace_file"]),
           "[10] bench --config 3 --trace-dir wrote no trace")
     check(row["selection"] == lat[3]["selection"],
@@ -2473,7 +2497,7 @@ def bench_phase(np, torch, fk, kind, card, here):
          frozen["replay"]["constrained"]),
     ):
         check(want["events"] == int(argv[-1]), f"{tag}: frozen events")
-        row, wall, launches = drive(tag, *argv)
+        _, row, wall, launches = drive(tag, *argv)
         stats = row["stats"]
         got = {k: stats[k] for k in want["stats"]}
         check(got == want["stats"],
@@ -2493,7 +2517,7 @@ def bench_phase(np, torch, fk, kind, card, here):
     for tag, group, variants in (("--quality", "quality", ("ffd", "shipped")),
                                  ("--quality-boundary", "boundary",
                                   ("shipped",))):
-        row, wall, launches = drive(tag, f"--{tag[2:]}")
+        _, row, wall, launches = drive(tag, f"--{tag[2:]}")
         want_rows = frozen["quality"][group]
         check(sorted(row["rows"]) == sorted(f"{n}/0" for n in want_rows),
               f"[10] bench {tag}: configs {sorted(row['rows'])}")
@@ -2519,8 +2543,9 @@ def bench_phase(np, torch, fk, kind, card, here):
             f"{kind} [{card}]")
 
     # ---- chain depth -------------------------------------------------------
-    row, wall, launches = drive("--chain-depth", "--chain-depth", "--events",
-                                str(testing.BENCH_CONSTRAINED_EVENTS))
+    _, row, wall, launches = drive("--chain-depth", "--chain-depth",
+                                   "--events",
+                                   str(testing.BENCH_CONSTRAINED_EVENTS))
     for side in ("organic", "control"):
         check(row[side] == frozen["chain"][side],
               f"[10] bench --chain-depth {side}: {row[side]} != the JAX "
@@ -2533,7 +2558,7 @@ def bench_phase(np, torch, fk, kind, card, here):
 
     # ---- quality at scale ---------------------------------------------------
     want = frozen["scale"]
-    row, wall, launches = drive(
+    _, row, wall, launches = drive(
         "--quality-scale", "--quality-scale", "--config", str(want["config"]),
         "--scale", str(want["scale"]))
     for key in ("bound", "achieved", "fetches_total", "schedule_lens",
@@ -2581,33 +2606,7 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
     frozen = testing.load_bench()
     total = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
 
-    def drive(tag, *argv, fallbacks=0, kernels=("B1", "B2")):
-        fk.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc, row = bench.run(["--device", "cuda", *argv])
-        wall = time.perf_counter() - t0
-        launches = dict(fk.LAUNCHES)
-        print(json.dumps(bench.drop_non_finite(row)), flush=True)
-        check(rc == 0, f"[11] bench {tag}: exit {rc}: "
-              f"{row.get('error') or row.get('violations')}")
-        check(all(launches[k] > 0 for k in kernels),
-              f"[11] bench {tag}: {kernels} did not all launch: {launches}")
-        check(row["launches"] == launches,
-              f"[11] bench {tag}: the row's launches {row['launches']} != "
-              f"the counters {launches}")
-        att = row["backend_attestation"]
-        check(att["solve_backend"] == f"cuda/{kind}"
-              and att.get("nvidia_smi") == card,
-              f"[11] bench {tag}: attestation {att} does not name {kind} "
-              f"[{card}]")
-        check(att["planner_fallbacks"] == fallbacks
-              and att["remote_planner_fallbacks"] == 0
-              and not att["device_sick"],
-              f"[11] bench {tag}: fallback counters {att} (want "
-              f"{fallbacks} planner fallbacks)")
-        for k in total:
-            total[k] += launches[k]
-        return row, wall, launches
+    drive = functools.partial(bench_drive, fk, 11, total, kind, card)
 
     # ---- --replay-device-only on the frozen harvested tick -------------
     want = frozen["harvest"]
@@ -2615,9 +2614,9 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
                          "replay_harvest_seed0.npz")
     os.makedirs(os.path.dirname(cache), exist_ok=True)
     shutil.copyfile(testing.HARVEST_PATH, cache)
-    row, wall, launches = drive("--replay-device-only",
-                                "--replay-device-only", "--harvest-cache",
-                                cache)
+    _, row, wall, launches = drive("--replay-device-only",
+                                   "--replay-device-only", "--harvest-cache",
+                                   cache)
     for key in ("selection", "feasible", "unproven", "bf_only",
                 "tick_shape"):
         check(row[key] == want[key],
@@ -2644,9 +2643,9 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
                                    str(testing.BENCH_CARRY_CHUNKS))),
                        ("ladder", ())):
         tag = f"--carry-wall --config {carry['config']} {' '.join(extra)}"
-        row, wall, launches = drive(tag.strip(), "--carry-wall", "--config",
-                                    str(carry["config"]), *extra,
-                                    kernels=("B3", "B4"))
+        _, row, wall, launches = drive(tag.strip(), "--carry-wall", "--config",
+                                       str(carry["config"]), *extra,
+                                       kernels=("B3", "B4"))
         with open(rows_path, "a") as f:
             f.write(json.dumps(bench.drop_non_finite(row)) + "\n")
         got = {k: row[k] for k in CARRY_KEYS}
@@ -2663,7 +2662,7 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
 
     # ---- --smoke ---------------------------------------------------------
     want = frozen["smoke"]
-    row, wall, launches = drive("--smoke", "--smoke")
+    _, row, wall, launches = drive("--smoke", "--smoke")
     ups = row["upload_bytes"]
     check(ups[0] == want["upload_bytes"][0],
           f"[11] --smoke: first full pack {ups[0]} B != the JAX package's "
@@ -2684,8 +2683,8 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
 
     # ---- --pallas-smoke --------------------------------------------------
     want = frozen["smoke"]["pallas"]
-    row, wall, launches = drive("--pallas-smoke", "--pallas-smoke",
-                                kernels=("B1", "B4"))
+    _, row, wall, launches = drive("--pallas-smoke", "--pallas-smoke",
+                                   kernels=("B1", "B4"))
     check(row["mismatches"] == want["mismatches"] == []
           and row["checks"] == want["checks"]
           and row["chunk_counts"] == want["chunk_counts"],
@@ -2702,8 +2701,8 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
     # ---- --chaos and --watch-soak ----------------------------------------
     n = str(frozen["soak"]["ticks"])
     want = frozen["soak"]["chaos"]
-    row, wall, launches = drive("--chaos", "--chaos", "--chaos-ticks", n,
-                                fallbacks=2)
+    _, row, wall, launches = drive("--chaos", "--chaos", "--chaos-ticks", n,
+                                   planner_fallbacks=2)
     got = {k: row.get(k) for k in want}
     check(got == want, f"[11] --chaos: {got} != the JAX package's {want}")
     log(f"[11] bench --chaos --chaos-ticks {n} ({row['metric']} = "
@@ -2716,8 +2715,8 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
         f"== the JAX package's; soak {row['wall_s']:.2f} s; launches "
         f"{launches}; on {kind} [{card}]")
     want = frozen["soak"]["watch"]
-    row, wall, launches = drive("--watch-soak", "--watch-soak",
-                                "--watch-soak-ticks", n)
+    _, row, wall, launches = drive("--watch-soak", "--watch-soak",
+                                   "--watch-soak-ticks", n)
     check(not want["violations"] and "violations" not in row,
           f"[11] --watch-soak violations: {row.get('violations')}")
     got = {k: row.get(k) for k in want["stats"]}
@@ -2739,9 +2738,11 @@ CARRY_ROWS = os.path.join("build", "bench_modes", "carry_wall.jsonl")
 # (its heavier phase's queue-wait p99 above the lighter one's): printed,
 # not held
 P99_ORDER = "degenerate queue-wait curve"
+# the service buckets the fleet twin's size tiers land in
+TWIN_BUCKETS = ("C8xK8xS8xR2xW1xA2", "C8xK16xS8xR2xW1xA2")
 
 
-def service_modes_phase(np, torch, fk, kind, card, here, full_twin: bool):
+def service_modes_phase(np, torch, fk, kind, card, here):
     """Phase 12: the root ``bench.py``'s service-side modes in the port's
     bench (by its ``run``) on the card, each with the launch counts set to
     0 just before and read just after and the attestation naming the
@@ -2761,10 +2762,14 @@ def service_modes_phase(np, torch, fk, kind, card, here, full_twin: bool):
       1 and ``ticks`` 27 (JAX 2 and 28): no batch leaves the card while
       it is sick, so the first two batches after the sick phase are both
       healthy probes;
-    - ``--fleet-twin-smoke --twin-calibration`` (phase 11's carry-wall
-      rows) and ``--storm-smoke``: no crash, no mismatch, every ledger
-      equal, the shed edges' per-reason deltas equal; ``full_twin`` adds
-      ``--fleet-twin`` (512 twins).
+    - ``--carry-wall --config 1``: its bucket is one the twins land in
+      (B4 and a first-fit kernel launch); its row joins phase 11's
+      carry-wall rows as the table ``--fleet-twin-smoke
+      --twin-calibration`` reads, which must charge some batches that
+      measured cost;
+    - ``--fleet-twin-smoke`` and ``--storm-smoke``: no crash, no
+      mismatch, every ledger equal, the shed edges' per-reason deltas
+      equal. Each prints its ``host_split``: where the host's wall went.
 
     Each row's JSON on its own line. Returns the phase's launches."""
     from k8s_spot_rescheduler_tpu_torch import testing
@@ -2773,33 +2778,7 @@ def service_modes_phase(np, torch, fk, kind, card, here, full_twin: bool):
     frozen = testing.load_bench()
     total = {k: 0 for k in fk.LAUNCHES}
 
-    def drive(tag, *argv, fallbacks=0, kernels=("B1", "B2"), ok=True):
-        fk.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc, row = bench.run(["--device", "cuda", *argv])
-        wall = time.perf_counter() - t0
-        launches = dict(fk.LAUNCHES)
-        print(json.dumps(bench.drop_non_finite(row)), flush=True)
-        if ok:
-            check(rc == 0, f"[12] bench {tag}: exit {rc}: "
-                  f"{row.get('failures') or row.get('violations')}")
-        check(all(launches[k] > 0 for k in kernels),
-              f"[12] bench {tag}: {kernels} did not all launch: {launches}")
-        check(row["launches"] == launches,
-              f"[12] bench {tag}: the row's launches {row['launches']} != "
-              f"the counters {launches}")
-        att = row["backend_attestation"]
-        check(att["solve_backend"] == f"cuda/{kind}"
-              and att.get("nvidia_smi") == card,
-              f"[12] bench {tag}: attestation {att} does not name {kind} "
-              f"[{card}]")
-        check(att["planner_fallbacks"] == 0
-              and att["remote_planner_fallbacks"] == fallbacks,
-              f"[12] bench {tag}: fallback counters {att} (want "
-              f"{fallbacks} agent fallbacks)")
-        for k in total:
-            total[k] += launches[k]
-        return rc, row, wall, launches
+    drive = functools.partial(bench_drive, fk, 12, total, kind, card)
 
     # ---- --serve-smoke -------------------------------------------------
     want = frozen["serve"]
@@ -2855,7 +2834,7 @@ def service_modes_phase(np, torch, fk, kind, card, here, full_twin: bool):
     want = dict(frozen["fleet"])
     named = {"recovered_after_ticks": (1, 2), "ticks": (27, 28)}
     rc, row, wall, launches = drive("--fleet-chaos", "--fleet-chaos",
-                                    fallbacks=want["fallbacks"])
+                                    remote_fallbacks=want["fallbacks"])
     for key, (port, jax) in named.items():
         check((row[key], want[key]) == (port, jax),
               f"[12] --fleet-chaos {key}: {row[key]} (the JAX package's "
@@ -2902,22 +2881,46 @@ def service_modes_phase(np, torch, fk, kind, card, here, full_twin: bool):
             f"{r['active_twins']} twins: occupancy {r['occupancy']}, p99 "
             f"{r['queue_wait_p99_ms']} ms" for r in row["capacity_curve"])
 
+    def split(row):
+        s = row["host_split"]
+        return (f"host {s['wall_ms_per_batch']} ms a batch over "
+                f"{s['batches']} batches (loop {s['loop_s']} s; a tick: "
+                f"encode {s['tick_encode_ms']}, post {s['tick_post_ms']} ms; "
+                f"a batch: solve {s['solve_ms_per_batch']} ms, medians "
+                f"{s['batch_ms_median']}; a request: "
+                f"{s['request_ms_median']})")
+
+    # a carry-wall row at the bucket most twins land in (config 1's 3+3
+    # nodes, 20 pods: C8xK16xS8), beside phase 11's config-3 rows
+    _, row, wall, launches = drive("--carry-wall --config 1", "--carry-wall",
+                                   "--config", "1", kernels=())
+    check(launches["B1"] + launches["B3"] > 0 and launches["B4"] > 0,
+          f"[12] --carry-wall --config 1: no first-fit or no B4: {launches}")
+    check(row["bucket"] in TWIN_BUCKETS, f"[12] --carry-wall --config 1: "
+          f"bucket {row['bucket']} is not a twin's {TWIN_BUCKETS}")
     cal = os.path.join(here, CARRY_ROWS)
+    with open(cal, "a") as f:
+        f.write(json.dumps(bench.drop_non_finite(row)) + "\n")
+    log(f"[12] bench --carry-wall --config 1 ({row['metric']}): union wall "
+        f"{row['value']:.3f} ms (median of {row['repeats']}), bucket "
+        f"{row['bucket']}, {row['carry_chunks']} chunks; launches "
+        f"{launches}; {wall:.1f} s, on {kind} [{card}]")
     rc, row, wall, launches = drive(
         "--fleet-twin-smoke", "--fleet-twin-smoke", "--twin-calibration", cal,
         kernels=("B1", "B2", "B1t", "B2t"), ok=False)
     p99 = twin_checks("--fleet-twin-smoke", row)
     check(rc == (1 if p99 else 0), f"[12] --fleet-twin-smoke: exit {rc}")
+    check(row["calibrated_batches"] > 0,
+          "[12] --fleet-twin-smoke: no batch was charged a carry-wall cost")
     log(f"[12] bench --fleet-twin-smoke --twin-calibration ({row['metric']} "
         f"= {row['value']}): {row['ever_active']} twins x {row['replicas']} "
         f"replicas, {row['sim_s']} s simulated in {row['wall_s']} s; "
         f"{curve(row)}; jain {row['jain_fleet']}; {row['verified_selections']} "
         f"spot checks == a solo TorchSolverPlanner; {row['failovers']} "
         f"failovers; restart storm {row['resync_storm']}; "
-        f"{row['calibrated_batches']} batches charged a carry-wall cost (no "
-        f"twin lands in config 3's bucket); shed edges == the JAX package's; "
-        f"p99 order: {p99 or 'held'}; launches {launches}; {wall:.1f} s, on "
-        f"{kind} [{card}]")
+        f"{row['calibrated_batches']} batches charged a carry-wall cost; shed "
+        f"edges == the JAX package's; p99 order: {p99 or 'held'}; "
+        f"{split(row)}; launches {launches}; {wall:.1f} s, on {kind} [{card}]")
     rc, row, wall, launches = drive(
         "--storm-smoke", "--storm-smoke",
         kernels=("B1", "B2", "B1t", "B2t"), ok=False)
@@ -2927,18 +2930,8 @@ def service_modes_phase(np, torch, fk, kind, card, here, full_twin: bool):
         f"{row['n_twins']} twins, {row['sim_s']} s simulated in "
         f"{row['wall_s']} s; restart storm {row['resync_storm']}; "
         f"{row['verified_selections']} spot checks; shed edges == the JAX "
-        f"package's; p99 order: {p99 or 'held'}; launches {launches}; "
-        f"{wall:.1f} s, on {kind} [{card}]")
-    if full_twin:
-        rc, row, wall, launches = drive(
-            "--fleet-twin", "--fleet-twin",
-            kernels=("B1", "B2", "B1t", "B2t"), ok=False)
-        p99 = twin_checks("--fleet-twin", row)
-        check(rc == (1 if p99 else 0), f"[12] --fleet-twin: exit {rc}")
-        log(f"[12] bench --fleet-twin ({row['metric']} = {row['value']}): "
-            f"{row['ever_active']} twins, {row['sim_s']} s simulated in "
-            f"{row['wall_s']} s; {curve(row)}; p99 order: {p99 or 'held'}; "
-            f"launches {launches}; {wall:.1f} s, on {kind} [{card}]")
+        f"package's; p99 order: {p99 or 'held'}; {split(row)}; launches "
+        f"{launches}; {wall:.1f} s, on {kind} [{card}]")
     return total
 
 
@@ -3229,8 +3222,7 @@ def main() -> int:
     phase_done("10 (bench)")
     modes_launches = bench_modes_phase(np, torch, fk, kind, card, here)
     phase_done("11 (bench modes)")
-    fleet_launches = service_modes_phase(np, torch, fk, kind, card, here,
-                                         full_twin=False)
+    fleet_launches = service_modes_phase(np, torch, fk, kind, card, here)
     phase_done("12 (service-side bench modes)")
     # the main path: the controller tick observing through the mirror,
     # fed by the fake cluster (phase 6) and by the watch (phase 7)
@@ -3244,10 +3236,12 @@ def main() -> int:
         ("B2", mirror["B2"] + bench_launches["B2"] + modes_launches["B2"]
          + fleet_launches["B2"],
          "controller tick on the mirror, and the bench"),
-        ("B3", stream_launches["B3"] + modes_launches["B3"],
-         "streamed union, and the bench's carry wall"),
-        ("B4", stream_launches["B4"] + modes_launches["B4"],
-         "streamed union, and the bench's carry wall and parity smoke"),
+        ("B3", stream_launches["B3"] + modes_launches["B3"]
+         + fleet_launches["B3"],
+         "streamed union, and the bench's carry walls"),
+        ("B4", stream_launches["B4"] + modes_launches["B4"]
+         + fleet_launches["B4"],
+         "streamed union, and the bench's carry walls and parity smoke"),
     ):
         row = dict(timings[name])
         row.pop("what")

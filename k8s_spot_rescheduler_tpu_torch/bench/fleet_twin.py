@@ -10,7 +10,8 @@ solves through the service's own ``_solve``, so every served selection
 comes from kernels B1t/B2t (B1/B2 for a batch of one tenant) on the
 card. The spot checks hold them to a solo ``TorchSolverPlanner``. The
 artifact also counts ``calibrated_batches``: the batches charged a
-measured cost from ``calibration`` rather than the modelled line.
+measured cost from ``calibration`` rather than the modelled line, and
+splits the run's host wall (``host_split``).
 
 The service gives one device a fleet of tenants, but its proofs run
 four agents. This module drives the design point: a heterogeneous
@@ -149,6 +150,14 @@ class _Fleet:
         # charges THAT instead of the synthetic base+per-lane line
         self.calibration: Dict[str, dict] = dict(calibration or {})
         self.calibrated_batches = 0  # batches charged a measured cost
+        # the host clock's side of the run (the artifact's
+        # ``host_split``): the batches solved and the wall of their
+        # solves, and each replica's batch log and request traces, kept
+        # as the replica shuts down
+        self.batches = 0
+        self.solve_wall_s = 0.0
+        self.batch_logs: List[dict] = []
+        self.request_traces: List[dict] = []
         self.busy_s = [0.0] * n_replicas  # modeled device time, per slot
         # per-replica device frontier: the virtual time through which
         # that replica's modeled device is committed. Parallel replicas
@@ -221,7 +230,12 @@ class _Fleet:
                 if behind > 0:
                     clock.advance(behind)
             busy[idx] += cost
-            return svc._solve(stacked)
+            t_solve = time.perf_counter()
+            out = svc._solve(stacked)
+            with self._adv_lock:
+                self.batches += 1
+                self.solve_wall_s += time.perf_counter() - t_solve
+            return out
 
         svc.solve_hook = hook
         srv.start_background(scheduler=True)
@@ -230,7 +244,7 @@ class _Fleet:
     def kill(self, idx: int) -> None:
         srv = self.replicas[idx]
         if srv is not None:
-            srv.graceful_shutdown()
+            self._shutdown(srv)
             self.replicas[idx] = None
 
     def restart(self, idx: int) -> None:
@@ -240,8 +254,13 @@ class _Fleet:
     def close(self) -> None:
         for i, srv in enumerate(self.replicas):
             if srv is not None:
-                srv.graceful_shutdown()
+                self._shutdown(srv)
                 self.replicas[i] = None
+
+    def _shutdown(self, srv: ServiceServer) -> None:
+        srv.graceful_shutdown()
+        self.batch_logs.extend(srv.service.batch_log)
+        self.request_traces.extend(srv.recent_request_traces())
 
 
 def fleet_twin(
@@ -339,6 +358,10 @@ def fleet_twin(
     fo_metric_0 = metrics.service_snapshot()["remote_planner_failover"]
     fo_flight_0 = flight.counts().get("failover", 0)
 
+    # the fleet loop's host wall: the twins' ticks (a thread pool; the
+    # replicas serve them meanwhile), the spot checks' solo solves and
+    # the churn between ticks
+    loop_s = {"ticks": 0.0, "spot_checks": 0.0, "churn": 0.0}
     pool = ThreadPoolExecutor(max_workers=pool_workers)
     phase_len = sim_s / phases
     aborted = ""
@@ -462,7 +485,9 @@ def fleet_twin(
                     )
                     clock.advance(max(1e-3, nxt - now))
                     continue
+                t0 = time.perf_counter()
                 list(pool.map(lambda i: twins[i].tick(), due))
+                loop_s["ticks"] += time.perf_counter() - t0
                 for i in due:
                     tw = twins[i]
                     # bit-identity spot checks: every twin's first
@@ -471,7 +496,9 @@ def fleet_twin(
                     if tw.last_reply is not None and (
                         tw.served == 1 or tw.served % verify_every == 0
                     ):
+                        t0 = time.perf_counter()
                         bad = tw.verify(solo)
+                        loop_s["spot_checks"] += time.perf_counter() - t0
                         verified += 1
                         if bad is not None:
                             mismatches.append(bad)
@@ -488,7 +515,9 @@ def fleet_twin(
                         tw.next_due = clock.now() + tw.spec.cadence_s * (
                             float(tw.rng.uniform(0.7, 1.3))
                         )
+                    t0 = time.perf_counter()
                     tw.churn()
+                    loop_s["churn"] += time.perf_counter() - t0
             if aborted:
                 break
             # make sure phase events all fired even if the tick stream
@@ -677,13 +706,17 @@ def fleet_twin(
                     clock.advance(max(1e-3, nxt - now))
                     continue
                 converge_ticks += 1
+                t0 = time.perf_counter()
                 list(pool.map(lambda i: twins[i].tick(), due))
+                loop_s["ticks"] += time.perf_counter() - t0
                 for i in due:
                     tw = twins[i]
                     if tw.last_reply is not None and (
                         tw.served == 1 or tw.served % verify_every == 0
                     ):
+                        t0 = time.perf_counter()
                         bad = tw.verify(solo)
+                        loop_s["spot_checks"] += time.perf_counter() - t0
                         verified += 1
                         if bad is not None:
                             mismatches.append(bad)
@@ -924,6 +957,9 @@ def fleet_twin(
             "misses": snap.get("compile_misses", 0),
         },
         "calibrated_batches": fleet.calibrated_batches,
+        "host_split": host_split(
+            fleet, twins.values(), loop_s, time.perf_counter() - t_wall
+        ),
         "sheds_by_reason": _shed_totals(),
         "shed_total_metric": shed_metric,
         "shed_total_flight": shed_flight,
@@ -955,6 +991,59 @@ def fleet_twin(
         "failures": failures,
     }
     return artifact
+
+
+def host_split(fleet: _Fleet, twins, loop_s: Dict[str, float],
+               wall_s: float) -> dict:
+    """Where a fleet run's host wall went, on the host clock. The fleet
+    loop's own wall splits into the twins' ticks, the spot checks and
+    the churn (``loop_s``), the rest being set-up, replica kills and
+    restarts and the phase reports. Per twin tick: its pack and encode,
+    and its POSTs' round trips (summed over the pool's threads, so
+    they hold each other's waits). Per batch: the wall of the
+    replicas' solves in their ``solve_hook`` (launch and sync), and the
+    medians over the last ``BATCH_LOG_MAX`` batches each replica logged
+    of its assemble (the delta scatter included), scatter and reply
+    times; per request, the medians of the last traces' admit, decode
+    and encode spans."""
+    twins = list(twins)
+    ticks = sum(tw.offered for tw in twins)
+    batches = max(1, fleet.batches)
+
+    def med(values) -> float:
+        return round(float(np.median(values)), 4) if values else 0.0
+
+    spans: Dict[str, List[float]] = {}
+    for entry in fleet.request_traces:
+        for span in entry["spans"]:
+            spans.setdefault(span["name"], []).append(span["dur_ms"])
+    logs = fleet.batch_logs
+    return {
+        "wall_s": round(wall_s, 3),
+        "loop_s": {
+            **{k: round(v, 3) for k, v in loop_s.items()},
+            "other": round(wall_s - sum(loop_s.values()), 3),
+        },
+        "ticks": ticks,
+        "batches": fleet.batches,
+        "wall_ms_per_batch": round(wall_s * 1e3 / batches, 4),
+        "tick_encode_ms": round(
+            sum(tw.encode_s for tw in twins) * 1e3 / max(1, ticks), 4
+        ),
+        "tick_post_ms": round(
+            sum(tw.post_s for tw in twins) * 1e3 / max(1, ticks), 4
+        ),
+        "solve_ms_per_batch": round(fleet.solve_wall_s * 1e3 / batches, 4),
+        "logged_batches": len(logs),
+        "batch_ms_median": {
+            k: med([rec[f"{k}_ms"] for rec in logs])
+            for k in ("assemble", "scatter", "reply")
+        },
+        "request_ms_median": {
+            k: med(spans.get(f"service.{k}", []))
+            for k in ("admit", "decode", "encode")
+        },
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1131,6 +1220,7 @@ def fleet_twin_report(result: dict, label: str) -> None:
     occ = "/".join("%.2f" % r["occupancy"] for r in curve)
     p99 = "/".join("%.0f" % r["queue_wait_p99_ms"] for r in curve)
     storm = result.get("resync_storm") or {}
+    split = result["host_split"]
     storm_note = ""
     if storm:
         storm_note = (
@@ -1153,7 +1243,9 @@ def fleet_twin_report(result: dict, label: str) -> None:
         f"{result['verified_selections']}  failovers="
         f"{result['failovers_metric']}=={result['failovers_flight']}  "
         f"sheds={result['shed_total_metric']}=={result['shed_total_flight']}  "
-        f"calibrated batches={result['calibrated_batches']}  {storm_note}"
+        f"calibrated batches={result['calibrated_batches']}  "
+        f"host={split['wall_ms_per_batch']}ms/batch over "
+        f"{split['batches']} batches (loop {split['loop_s']})  {storm_note}"
         f"-> {'OK' if result['ok'] else 'FAIL: %s' % result['failures']}"
     )
 
@@ -1225,6 +1317,7 @@ def run_fleet_twin_smoke(args, device, metric: str, unit: str) -> tuple:
         "storm_p99_wait_ms": result["storm_p99_wait_ms"],
         "calibrated": calibration is not None,
         "calibrated_batches": result["calibrated_batches"],
+        "host_split": result["host_split"],
         "ok": ok,
         "failures": result["failures"] + edges["failures"],
     }
@@ -1296,6 +1389,7 @@ def run_storm_smoke(args, device, metric: str, unit: str) -> tuple:
         "crashes": result["crashes"],
         "calibrated": calibration is not None,
         "calibrated_batches": result["calibrated_batches"],
+        "host_split": result["host_split"],
         "ok": ok,
         "failures": result["failures"] + edges["failures"] + (
             [] if result.get("resync_storm")

@@ -50,6 +50,7 @@ asserts on the ACCOUNTING of that degradation, not on hiding it.
 from __future__ import annotations
 
 import dataclasses
+import time
 import urllib.error
 import urllib.request
 from typing import List, Optional, Sequence, Tuple
@@ -258,6 +259,11 @@ class TenantTwin:
         self.delta_posts = 0      # delta bodies POSTed
         self.schedule_ticks = 0   # v3 schedule requests served
         self.wire_bytes_sent = 0  # request-body bytes, pack and delta
+        # host-clock seconds of this twin's ticks: pack, fingerprint,
+        # delta and encode; then every POST's round trip and decode
+        # (the fleet twin's ``host_split``)
+        self.encode_s = 0.0
+        self.post_s = 0.0
 
     # ------------------------------------------------------------------
     # wire client
@@ -310,6 +316,7 @@ class TenantTwin:
             and self.served > 0
             and self.offered % SCHEDULE_EVERY == 0
         )
+        t_encode = time.perf_counter()
         try:
             packed, meta = self.store.pack(self.pdbs)
             if schedule_tick:
@@ -359,6 +366,7 @@ class TenantTwin:
                 "twin-crash", cause=f"pack/encode failed: {err}",
             )
             return None
+        self.encode_s += time.perf_counter() - t_encode
         headers = {"Content-Type": "application/octet-stream"}
         if self.spec.deadline_s > 0:
             headers["X-Planner-Deadline"] = str(self.spec.deadline_s)
@@ -373,6 +381,7 @@ class TenantTwin:
                 delta_body is not None and ep.acked_fp == base_fp
             )
             payload = delta_body if use_delta else body
+            t_post = time.perf_counter()
             try:
                 raw = post_plan(f"{ep.url}/v2/plan", payload, headers)
                 self.wire_bytes_sent += len(payload)
@@ -404,6 +413,8 @@ class TenantTwin:
                     "twin-crash", cause=f"tick failed: {err}",
                 )
                 return None
+            finally:
+                self.post_s += time.perf_counter() - t_post
             if isinstance(decoded, wire.ResyncDemand):
                 # protocol, not failure: no breaker, no failover walk.
                 # The one full-pack answer is DEFERRED a jittered

@@ -13,16 +13,26 @@
 - ``induce_shed_edges`` fires every reason of ``SHED_REASONS`` with the
   metric and flight deltas of the JAX freeze (``data/bench_seed0.json``
   part ``edges``).
+- The replicas' ``solve_hook``, given a calibration table keyed by a
+  real twin bucket (``bucket_for`` of a twin's pack), charges every
+  batch as the JAX package's fleet does: the same busy time, device
+  frontier and virtual clock after each batch, the measured cost where
+  the batch's bucket has one (a zero cost falling back to the base
+  line), the modelled line elsewhere, and the same answers.
 - A small fleet (16 twins, 360 simulated seconds, two phases and the
   restart storm) keeps the fleet invariants: no twin crash, every
   spot-checked selection solo-identical, the shed, failover and resync
   ledgers equal, the occupancy curve increasing. Its run is threaded
   and not deterministic tick by tick, so it is held to these, not to a
   freeze; the wall budget is set out of reach and no wall figure is
-  read. The reference's "degenerate queue-wait curve" check (the
-  heavier phase's p99 above the lighter one's) is left out here: with a
-  few dozen waits a phase it turns on one joint tick's timing (the
-  reference's own ``test_capacity_curve_shape`` fails so under load).
+  read. Its ``host_split`` accounts for every batch and tick. The same
+  fleet with a calibration table charges some of its batches a
+  measured cost, and its curve has the JAX fleet's phases and active
+  twins under the same table, increasing in both. The reference's
+  "degenerate queue-wait curve" check (the heavier phase's p99 above
+  the lighter one's) is left out here: with a few dozen waits a phase
+  it turns on one joint tick's timing (the reference's own
+  ``test_capacity_curve_shape`` fails so under load).
 
 Tolerance: exact.
 """
@@ -42,6 +52,7 @@ from k8s_spot_rescheduler_tpu.metrics import registry as ref_metrics
 from k8s_spot_rescheduler_tpu.planner.solver_planner import (
     SolverPlanner as RefSolverPlanner,
 )
+from k8s_spot_rescheduler_tpu.service import buckets as ref_buckets
 from k8s_spot_rescheduler_tpu.service import server as ref_server
 from k8s_spot_rescheduler_tpu.service import twin as ref_twin
 from k8s_spot_rescheduler_tpu.utils.clock import FakeClock as RefClock
@@ -56,6 +67,7 @@ from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
     TorchSolverPlanner,
 )
 from k8s_spot_rescheduler_tpu_torch.service import agent
+from k8s_spot_rescheduler_tpu_torch.service import buckets
 from k8s_spot_rescheduler_tpu_torch.service import server
 from k8s_spot_rescheduler_tpu_torch.service import twin
 from k8s_spot_rescheduler_tpu_torch.utils.clock import FakeClock
@@ -285,3 +297,115 @@ def test_small_fleet_occupancy_curve_increases(small_fleet):
     assert 0 < occ[0] < occ[1] <= 1.0
     assert small_fleet["capacity_tenants_per_device_at_slo"] >= 4
     assert small_fleet["jain_fleet"] >= 0.8
+
+
+def test_small_fleet_host_split_accounts_every_batch(small_fleet):
+    split = small_fleet["host_split"]
+    assert split["ticks"] >= split["batches"] > 0
+    assert 0 < split["logged_batches"] <= split["batches"]
+    assert set(split["loop_s"]) == {"ticks", "spot_checks", "churn", "other"}
+    assert set(split["batch_ms_median"]) == {"assemble", "scatter", "reply"}
+    assert set(split["request_ms_median"]) == {"admit", "decode", "encode"}
+
+
+# --- the calibrated cost ---------------------------------------------------------------------
+
+
+def _twin_buckets() -> dict:
+    """Each bucket a 16-twin fleet lands in, with one twin's pack in it,
+    from both packages' twins and buckets."""
+    cfg = ReschedulerConfig(resources=CONFIGS[2].resources)
+    ref_cfg = RefConfig(resources=REF_CONFIGS[2].resources)
+    out = {}
+    for spec in twin.fleet_specs(16):
+        tw = twin.TenantTwin(spec, cfg, FakeClock(), ["http://a:1"])
+        packed, _ = tw.store.pack(tw.pdbs)
+        ref_tw = ref_twin.TenantTwin(ref_twin.TwinSpec(
+            **dataclasses.asdict(spec)), ref_cfg, RefClock(), ["http://a:1"])
+        ref_packed, _ = ref_tw.store.pack(ref_tw.pdbs)
+        key = buckets.bucket_for(packed).key
+        assert key == ref_buckets.bucket_for(ref_packed).key
+        out.setdefault(key, (packed, ref_packed))
+    return out
+
+
+def _fleet(package: str, calibration: dict):
+    if package == "port":
+        cfg = ReschedulerConfig(resources=CONFIGS[2].resources,
+                                solver="torch", device_sick_threshold=0)
+        clock = FakeClock()
+        return fleet_twin._Fleet(cfg, clock, 1, 16, 0.3, 0.4,
+                                 calibration=calibration, device="cpu"), clock
+    cfg = RefConfig(resources=REF_CONFIGS[2].resources, solver="numpy",
+                    device_sick_threshold=0)
+    clock = RefClock()
+    return ref_fleet_twin._Fleet(cfg, clock, 1, 16, 0.3, 0.4,
+                                 calibration=calibration), clock
+
+
+class _Request:
+    """What the hook reads of a queued request."""
+
+    def __init__(self, bucket, enqueued: float, lanes: int):
+        self.bucket, self.enqueued, self.lanes = bucket, enqueued, lanes
+
+
+@pytest.mark.parametrize("zero_for_small", (False, True))
+def test_calibrated_charge_equals_the_jax_fleets(zero_for_small):
+    packs = _twin_buckets()
+    assert len(packs) == 2  # the fleet's two buckets (K8 and K16)
+    (small_key, small), (big_key, big) = sorted(packs.items())
+    # measured costs keyed by a real twin bucket; a zero cost falls back
+    # to the base line (the reference's "or cost_base_s")
+    table = {big_key: {"solve_s": 0.5}}
+    if zero_for_small:
+        table[small_key] = {"solve_s": 0.0}
+    # (bucket, members, enqueue times): calibrated, modelled, calibrated
+    # again after an idle gap (the batch starts at its last enqueue)
+    script = ((big_key, big, (0.0, 0.125)), (small_key, small, (0.25,)),
+              (big_key, big, (40.0, 41.0, 42.0)))
+    fleets = {name: _fleet(name, table) for name in ("port", "ref")}
+    try:
+        calibrated = 0
+        for n, (key, (packed, ref_packed), times) in enumerate(script, 1):
+            seen = {}
+            for name, (fleet, clock) in fleets.items():
+                mod = buckets if name == "port" else ref_buckets
+                pack = packed if name == "port" else ref_packed
+                b = mod.bucket_for(pack)
+                stacked = mod.stack_bucket(
+                    [mod.pad_to_bucket(pack, b)] * len(times), b)
+                batch = [_Request(b, t, int(np.asarray(
+                    pack.cand_valid).sum())) for t in times]
+                out = fleet.replicas[0].service.solve_hook(stacked, batch)
+                seen[name] = (np.asarray(out).tolist(), fleet.busy_s,
+                              fleet.frontier, clock.now())
+            assert seen["port"] == seen["ref"], key
+            calibrated += key in table
+            assert fleets["port"][0].calibrated_batches == calibrated
+            assert fleets["port"][0].batches == n
+        assert calibrated == (3 if zero_for_small else 2)
+    finally:
+        for fleet, _ in fleets.values():
+            fleet.close()
+
+
+def test_calibrated_small_fleet_follows_the_jax_fleets_curve():
+    table = {key: {"solve_s": 0.5} for key in _twin_buckets()
+             if "K16" in key}
+    kw = dict(n_twins=16, n_replicas=2, sim_s=360.0, seed=0, phases=2,
+              slo_ms=60000.0, cost_base_s=0.3, cost_per_lane_s=0.4,
+              resync_storm_s=120.0, max_wall_s=1e9, calibration=table)
+    got = fleet_twin.fleet_twin(device="cpu", **kw)
+    want = ref_fleet_twin.fleet_twin(**kw)
+    assert 0 < got["calibrated_batches"] < got["host_split"]["batches"]
+    for run in (got, want):
+        assert run["crashes"] == 0 and run["mismatches"] == []
+        occ = [r["occupancy"] for r in run["capacity_curve"]]
+        assert 0 < occ[0] < occ[1] <= 1.0
+
+    def shape(run):
+        return [(r["phase"], r["active_twins"], r["tenants_per_device"])
+                for r in run["capacity_curve"]]
+
+    assert shape(got) == shape(want) == [(0, 8, 4.0), (1, 16, 8.0)]
