@@ -151,7 +151,29 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    must charge some batches the measured cost) and ``--storm-smoke``,
    each count and selection held against the JAX package's frozen rows,
    each row's JSON on its own line. The ``launches`` in the ``kernels``
-   line add this phase's.
+   line add this phase's;
+13. the mesh tiers, on a mesh that names the one card
+   ``testing.SHARDED_DEVICES`` times (``[cuda:0] * 4``): config 3's
+   controller pack (C=2560 K=64 S=2560) through ``TorchSolverPlanner``
+   with ``solver_hbm_budget`` set to land on each rung of
+   ``testing.SHARDED_RUNGS`` (cand, cand-chunked, cand-carry, 2-D (4,1)
+   and (2,2)), the contended pack and the harvested tick through the
+   2-D and carry rungs (selections, lanes and dispatch: tier label,
+   repair and carry chunks, carry bytes), each against the JAX
+   package's answers on 4 virtual CPU devices
+   (``data/sharded_seed0.npz``), with the launch counts set to 0 just
+   before each run and one B1+B2 (cand rungs) or B3+B4 (carry rungs) a
+   lane block; phase 8's fleet through a ``PlannerService`` over a
+   tenant mesh of 4 at T=8 and T=6 (padded to 8 with inert tenants; the
+   batch log names only the real ones; one B1t and one B2t a block) and
+   the tenant batch's carry tier (``carry_chunks=4``), every row equal
+   to the JAX service's and to the one-device batch; ``python -m
+   k8s_spot_rescheduler_tpu_torch`` with ``testing.SHARDED_CLI_ARGS``
+   (``--solver sharded --mesh-shape 1x1`` on config 3), its drains
+   equal to the JAX CLI's; and ``bench --scale-smoke``, its numbers
+   equal to the root ``bench.py``'s. Each rung's ms a call (CUDA
+   events) and launches are printed. One card cannot show concurrency
+   between cards nor peer copies; this phase does not claim them.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -1655,7 +1677,10 @@ def tenant_check(np, torch, fk, stacked, what: str) -> float:
 def service_phase(np, torch, fk, kind, card, here):
     """Phase 8: the multi-tenant planner service on the card (see the
     module docstring). Returns (launches of the agents' path, the
-    kernels-line rows of B1t and B2t)."""
+    kernels-line rows of B1t and B2t, the launches under the service
+    fault layer, and the fleet phase 13 lays over a tenant mesh: the
+    service's config, the tenant names, their first packs and the frozen
+    rows)."""
     import threading
     import urllib.request
 
@@ -1947,7 +1972,9 @@ def service_phase(np, torch, fk, kind, card, here):
             f"service's path, on {kind} [{card}]")
     fk.LAUNCHES.update(saved)
     cli_phase(here, kind, card)
-    return launches, rows, chaos_launches
+    # phase 13 lays the same fleet over a tenant mesh
+    fleet = (server_cfg, names, packs, [frozen[name]["row"] for name in names])
+    return launches, rows, chaos_launches, fleet
 
 
 def service_chaos_phase(np, fk, kind, card, tenants, frozen):
@@ -2935,6 +2962,253 @@ def service_modes_phase(np, torch, fk, kind, card, here):
     return total
 
 
+SCALE_KEYS = ("carry_chunks", "carry_bytes", "repair_chunks",
+              "repair_unavailable", "narrow_carry_chunks", "lane_block",
+              "est_device_gb", "budget_gb", "breakdown_mb")
+
+
+def selection_of(np, sel):
+    return np.concatenate([[sel.index, int(sel.found), sel.n_feasible],
+                           sel.row])
+
+
+def one_layout(packs):
+    """The carry layout every pack proves (``solver/carry.carry_layout``),
+    or the wide layout where they differ."""
+    from k8s_spot_rescheduler_tpu_torch.solver.carry import (
+        WIDE_LAYOUT,
+        carry_layout,
+    )
+
+    layouts = {carry_layout(p) for p in packs}
+    return layouts.pop() if len(layouts) == 1 else WIDE_LAYOUT
+
+
+def mesh_phase(np, torch, fk, kind, card, here, fleet):
+    """Phase 13: the mesh tiers on one card named ``SHARDED_DEVICES``
+    times (see the module docstring). Returns the launches of its main
+    paths."""
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import (
+        load_npz,
+        to_device,
+    )
+    from k8s_spot_rescheduler_tpu_torch.parallel.mesh import (
+        make_cand_mesh,
+        make_mesh,
+        make_tenant_mesh,
+    )
+    from k8s_spot_rescheduler_tpu_torch.parallel.sharded_ffd import (
+        plan_ffd_sharded,
+        plan_union_cand_sharded,
+    )
+    from k8s_spot_rescheduler_tpu_torch.parallel.tenant_batch import (
+        make_tenant_batch_planner,
+    )
+    from k8s_spot_rescheduler_tpu_torch.planner.solver_planner import (
+        TorchSolverPlanner,
+    )
+    from k8s_spot_rescheduler_tpu_torch.service import buckets
+    from k8s_spot_rescheduler_tpu_torch.service.server import PlannerService
+    from k8s_spot_rescheduler_tpu_torch.solver.carry import carry_layout
+    from k8s_spot_rescheduler_tpu_torch.solver.fallback import (
+        with_best_fit_fallback,
+    )
+    from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
+
+    n = testing.SHARDED_DEVICES
+    devices = [torch.device("cuda", 0)] * n
+    host3, ans = load_npz(testing.SHARDED_PATH)
+    check(int(ans["devices"]) == n, "the frozen mesh size differs")
+    total = {k: 0 for k in fk.LAUNCHES}
+    want_launches = {  # one launch a lane block of each of the path's kernels
+        "cand": {"B1": n, "B2": n}, "cand-chunked": {"B1": n, "B2": n},
+        "cand-carry": {"B3": n, "B4": n}, "2d": {},
+    }
+
+    def drive(fn):
+        """fn() with the launch counts set to 0 just before, read just
+        after; returns (result, launches)."""
+        fk.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = dict(fk.LAUNCHES)
+        for k in total:
+            total[k] += launches[k]
+        return out, launches
+
+    def rung(tag, host, key, tier, mesh_shape):
+        cfg = ReschedulerConfig(solver_hbm_budget=int(ans[f"{key}_budget"]),
+                                mesh_shape=tuple(mesh_shape))
+        planner = TorchSolverPlanner(cfg, device="cuda", devices=devices)
+        t0 = time.perf_counter()
+        sel, launches = drive(lambda: planner.plan_packed(host))
+        first_s = time.perf_counter() - t0
+        check(np.array_equal(selection_of(np, sel), ans[f"{key}_selection"]),
+              f"[13] {tag}: selection {selection_of(np, sel)[:3]} != the "
+              f"JAX package's {ans[f'{key}_selection'][:3]}")
+        dispatch = ans[f"{key}_dispatch"].tolist()
+        label = str(ans[f"{key}_label"]).replace("jax", "torch", 1)
+        check(planner.last_dispatch == (label, bool(dispatch[0]),
+                                        *dispatch[1:]),
+              f"[13] {tag}: dispatch {planner.last_dispatch} != the JAX "
+              f"package's ({label}, {dispatch})")
+        used = {k: v for k, v in launches.items() if v}
+        check(used == want_launches[tier],
+              f"[13] {tag}: launches {used}, want {want_launches[tier]}")
+        reps = 3 if tier == "2d" else 10
+        ms = time_ms(torch, lambda: planner.plan_packed(host), reps=reps,
+                     warmup=1)
+        return (f"{tag}: {label} (repair_dropped={dispatch[0]}, "
+                f"repair_chunks={dispatch[1]}, carry_chunks={dispatch[2]}, "
+                f"carry_bytes={dispatch[3]}), selection idx={sel.index} "
+                f"n_feasible={sel.n_feasible} == the JAX package's; first "
+                f"call {first_s * 1e3:.1f} ms, {ms:.3f} ms a call (median of "
+                f"{reps}, CUDA events); launches {used or 'none (torch ops)'}")
+
+    # ---- config 3's controller pack through every rung ------------------
+    C3, K3, _ = host3.slot_req.shape
+    for name, tier, mesh_shape in testing.SHARDED_RUNGS:
+        log(f"[13] config 3 (C={C3} K={K3} S={host3.spot_free.shape[0]}), "
+            + rung(f"rung {name}", host3, f"config3_{name}", tier, mesh_shape)
+            + f", over {n} x cuda:0 on {kind} [{card}]")
+
+    # ---- the contended pack and the harvested tick ----------------------
+    data = os.path.join(here, "k8s_spot_rescheduler_tpu_torch", "data")
+    sources = {"contended": os.path.join(data, "contended_seed0.npz"),
+               "harvest": testing.HARVEST_PATH}
+    for pack in testing.SHARDED_PACKS:
+        host, _ = load_npz(sources[pack])
+        for name, tier, mesh_shape in testing.SHARDED_PACK_RUNGS:
+            key = f"{pack}_{name}"
+            line = rung(f"{pack} rung {name}", host, key, tier, mesh_shape)
+            if tier == "2d":
+                solve = with_best_fit_fallback(functools.partial(
+                    plan_ffd_sharded, make_mesh(tuple(mesh_shape), devices)))
+            else:
+                solve = functools.partial(
+                    plan_union_cand_sharded, make_cand_mesh(devices),
+                    rounds=8, carry_chunks=STREAM_CHUNKS[-1],
+                    carry_layout=carry_layout(host), use_kernel=True)
+            res, launches = drive(lambda: solve(host))
+            check(np.array_equal(res.feasible.cpu().numpy(),
+                                 ans[f"{key}_feasible"])
+                  and np.array_equal(res.assignment.cpu().numpy(),
+                                     ans[f"{key}_assignment"]),
+                  f"[13] {pack} {name}: lanes != the JAX package's")
+            check({k: v for k, v in launches.items() if v}
+                  == want_launches[tier],
+                  f"[13] {pack} {name}: launches {launches}")
+            log(f"[13] {pack} (C={host.slot_req.shape[0]} "
+                f"K={host.slot_req.shape[1]} S={host.spot_free.shape[0]}), "
+                f"{line}; lanes ({int(res.feasible.sum())} feasible) == the "
+                f"JAX package's on {kind} [{card}]")
+
+    # ---- the service stack over a tenant mesh ----------------------------
+    server_cfg, names, packs, rows = fleet
+    bucket = buckets.bucket_for(packs[0])
+    for T in (len(names), 6):
+        svc = PlannerService(server_cfg, batch_window_s=0,
+                             max_batch_tenants=len(names), device="cuda",
+                             devices=devices)
+        reqs = [svc.submit_nowait(name, p)
+                for name, p in zip(names[:T], packs[:T])]
+        t0 = time.perf_counter()
+        _, batch_launches = drive(svc.drain_once)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        for name, req, want in zip(names, reqs, rows):
+            r = req.reply
+            check(req.error is None and r is not None
+                  and [r.index, int(r.found), r.n_feasible,
+                       *np.asarray(r.row).tolist()] == want,
+                  f"[13] tenant mesh T={T}: {name}'s reply != the JAX "
+                  f"service's")
+        b = svc.batch_log[-1]
+        check(b["tenants"] == names[:T] and b["path"] == "device",
+              f"[13] tenant mesh T={T}: batch {b['tenants']} on {b['path']}")
+        check(batch_launches["B1t"] == n and batch_launches["B2t"] == n,
+              f"[13] tenant mesh T={T}: launches {batch_launches}, want one "
+              f"B1t and one B2t a block")
+        padded = svc._pad_tenant_axis(buckets.stack_bucket(
+            [buckets.pad_to_bucket(p, bucket) for p in packs[:T]], bucket))
+        dev = to_device(padded, "cuda")
+        one = make_tenant_batch_planner(None, rounds=8)(dev)[:T]
+        layout = one_layout(packs[:T])
+        mesh_rows = {}
+        for chunks in (0, 4):
+            planner = make_tenant_batch_planner(
+                make_tenant_mesh(devices), rounds=8, carry_chunks=chunks,
+                carry_layout=layout if chunks else None)
+            out, mesh_rows[chunks] = drive(lambda: planner(dev))
+            check(torch.equal(out[:T], one)
+                  and out[:T].cpu().numpy().tolist() == rows[:T],
+                  f"[13] tenant mesh T={T} carry_chunks={chunks}: rows != "
+                  f"the one-device batch / the JAX service's")
+        check(mesh_rows[4]["B3"] == padded.slot_req.shape[0]
+              and mesh_rows[4]["B4"] == padded.slot_req.shape[0],
+              f"[13] tenant mesh T={T} carry tier: launches {mesh_rows[4]}")
+        ms = time_ms(torch, lambda: make_tenant_batch_planner(
+            make_tenant_mesh(devices), rounds=8)(dev), reps=10, warmup=1)
+        one_ms = time_ms(torch, lambda: make_tenant_batch_planner(
+            None, rounds=8)(dev), reps=10, warmup=1)
+        log(f"[13] tenant mesh of {n} x cuda:0, T={T} (padded to "
+            f"{padded.slot_req.shape[0]}, {bucket.key}): drain_once "
+            f"{batch_ms:.1f} ms, every reply == the JAX service's "
+            f"(data/service_seed0.json), batch log names the {T} tenants, "
+            f"{batch_launches['B1t']} B1t + {batch_launches['B2t']} B2t "
+            f"(one a block); "
+            f"the mesh batch {ms:.3f} ms against one device {one_ms:.3f} ms a "
+            f"call (CUDA events), rows == the one-device batch; carry tier "
+            f"(carry_chunks=4, layout {'/'.join(layout)}): rows equal, "
+            f"{mesh_rows[4]['B3']} B3 + {mesh_rows[4]['B4']} B4 (one a "
+            f"tenant) on {kind} [{card}]")
+
+    # ---- the CLI ----------------------------------------------------------
+    frozen_cli = json.loads(str(ans["cli"]))
+    argv = [sys.executable, "-m", "k8s_spot_rescheduler_tpu_torch",
+            *testing.SHARDED_CLI_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=here, env=dict(os.environ,
+                                                   PYTHONPATH=here),
+                          capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"[13] sharded CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    drained = re.findall(r"tick \d+: drained=(\[.*?\])", proc.stderr)
+    want = [repr(rec["drained"]) for rec in frozen_cli["records"]]
+    check(drained == want, f"[13] sharded CLI drained {drained}, the JAX "
+                           f"package's CLI {want}")
+    fallbacks = re.findall(r"planner_fallback_total=(\d+)", proc.stderr)
+    check(fallbacks == ["0"],
+          f"[13] sharded CLI planner_fallback_total {fallbacks}")
+    log(f"[13] python -m k8s_spot_rescheduler_tpu_torch "
+        f"{' '.join(testing.SHARDED_CLI_ARGS)}: exit 0 in {cli_s:.1f} s, "
+        f"drained {', '.join(drained)} == the JAX package's CLI with the "
+        f"same flags, planner_fallback_total=0, on {kind} [{card}]")
+
+    # ---- --scale-smoke ----------------------------------------------------
+    frozen = json.loads(str(ans["scale_smoke"]))
+    _, row, wall, _ = bench_drive(fk, 13, total, kind, card,
+                                  "--scale-smoke", "--scale-smoke",
+                                  kernels=())
+    for key in SCALE_KEYS:
+        check(row[key] == frozen[key],
+              f"[13] --scale-smoke {key} {row[key]} != the JAX package's "
+              f"{frozen[key]}")
+    log(f"[13] bench --scale-smoke ({row['metric']} = {row['value']}): "
+        f"{', '.join(f'{k} {row[k]}' for k in SCALE_KEYS[:-1])} == the JAX "
+        f"package's; B3/B4 launch geometries at the {row['lane_block']}-"
+        f"lane block: " + "; ".join(
+            f"{lay} B3 {g['B3']['lanes_per_block']}x"
+            f"{g['B3']['warps_per_lane']} warps {g['B3']['smem_bytes']} B, "
+            f"B4 {g['B4']['lanes_per_block']}x{g['B4']['warps_per_lane']} "
+            f"warps {g['B4']['smem_bytes']} B"
+            for lay, g in row["geometry"].items()))
+    log("[13] one card named several times: every rung's kernels ran, "
+        "block by block; multi-GPU concurrency and peer copies were not run")
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3212,8 +3486,8 @@ def main() -> int:
     phase_done("6 (controller)")
     kube_launches = kube_phase(np, torch, fk, kind, card, here)
     phase_done("7 (kube path)")
-    service_launches, service_rows, service_chaos_launches = service_phase(
-        np, torch, fk, kind, card, here)
+    service_launches, service_rows, service_chaos_launches, fleet = (
+        service_phase(np, torch, fk, kind, card, here))
     phase_done("8 (planner service)")
     chaos_launches = chaos_phase(np, torch, fk, kind, card, here)
 
@@ -3224,6 +3498,8 @@ def main() -> int:
     phase_done("11 (bench modes)")
     fleet_launches = service_modes_phase(np, torch, fk, kind, card, here)
     phase_done("12 (service-side bench modes)")
+    mesh_launches = mesh_phase(np, torch, fk, kind, card, here, fleet)
+    phase_done("13 (mesh tiers)")
     # the main path: the controller tick observing through the mirror,
     # fed by the fake cluster (phase 6) and by the watch (phase 7)
     mirror = {k: tick_launches["columnar"][k] + kube_launches[k]
@@ -3231,17 +3507,18 @@ def main() -> int:
     out = []
     for name, launches, path in (
         ("B1", mirror["B1"] + bench_launches["B1"] + modes_launches["B1"]
-         + fleet_launches["B1"],
-         "controller tick on the mirror, and the bench"),
+         + fleet_launches["B1"] + mesh_launches["B1"],
+         "controller tick on the mirror, the bench, and the cand tiers"),
         ("B2", mirror["B2"] + bench_launches["B2"] + modes_launches["B2"]
-         + fleet_launches["B2"],
-         "controller tick on the mirror, and the bench"),
+         + fleet_launches["B2"] + mesh_launches["B2"],
+         "controller tick on the mirror, the bench, and the cand tiers"),
         ("B3", stream_launches["B3"] + modes_launches["B3"]
-         + fleet_launches["B3"],
-         "streamed union, and the bench's carry walls"),
+         + fleet_launches["B3"] + mesh_launches["B3"],
+         "streamed union, the bench's carry walls, and the carry tiers"),
         ("B4", stream_launches["B4"] + modes_launches["B4"]
-         + fleet_launches["B4"],
-         "streamed union, and the bench's carry walls and parity smoke"),
+         + fleet_launches["B4"] + mesh_launches["B4"],
+         "streamed union, the bench's carry walls and parity smoke, and "
+         "the carry tiers"),
     ):
         row = dict(timings[name])
         row.pop("what")
@@ -3260,18 +3537,21 @@ def main() -> int:
             "bench (phase 10)": bench_launches.get(name, 0),
             "bench modes (phase 11)": modes_launches[name],
             "service-side bench modes (phase 12)": fleet_launches[name],
+            "mesh tiers (phase 13)": mesh_launches[name],
         }
         out.append(row)
     for name in ("B1t", "B2t"):
         row = dict(service_rows[name])
-        row["launches"] += fleet_launches[name]
-        row["path"] = ("planner service batch (phase 8), and the service-"
-                       "side bench modes (phase 12)")
+        row["launches"] += fleet_launches[name] + mesh_launches[name]
+        row["path"] = ("planner service batch (phase 8), the service-side "
+                       "bench modes (phase 12), and the tenant mesh "
+                       "(phase 13)")
         row["launches_by_path"] = {
             "planner service batch (phase 8)": service_launches[name],
             "planner service under the service fault layer (phase 8)":
                 service_chaos_launches[name],
-            "service-side bench modes (phase 12)": fleet_launches[name]}
+            "service-side bench modes (phase 12)": fleet_launches[name],
+            "mesh tiers (phase 13)": mesh_launches[name]}
         out.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

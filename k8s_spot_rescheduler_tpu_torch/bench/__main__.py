@@ -12,9 +12,8 @@ packages compare:
   (pack + upload + solve + fetch), the steady incremental tick of
   ``TorchSolverPlanner.plan`` through the resident cache, and the
   device-only estimate of ``bench/protocol``. Metric
-  ``drain_plan_ms_config3_50kpods_5knodes`` and its siblings. With one
-  device the memory ladder answers "single"; the multi-device tiers
-  come with the mesh slice.
+  ``drain_plan_ms_config3_50kpods_5knodes`` and its siblings. The
+  planner has one device here, so the memory ladder answers "single".
 - ``--config 5 [--constrained] --events N``: the spot-interruption
   replay (``bench/replay``). Metrics ``replay_replan_ms_p50_1k_events``
   and ``replay_constrained_replan_ms_p50_1k_events``.
@@ -41,6 +40,11 @@ packages compare:
 - ``--carry-wall [--carry-chunks N]``: the carry-streamed union (B3/B4,
   repair) at ``--config`` x ``--scale`` (``bench/carry_wall``). Metric
   ``carry_union_wall_ms_config3_x1`` and its siblings.
+- ``--scale-smoke``: the dispatch ladder at the 20x shapes (1M pods,
+  100k nodes) over 8 devices at the default budget, shape only, no
+  solve (``bench/scale_smoke``): repair stays live, the estimate fits,
+  B3 and B4 have launch geometries at the lane block. Metric
+  ``scale_smoke_20x_shape_proof_s``.
 - ``--smoke``: five ticks of the incremental pipeline on a small
   cluster; exit 1 unless the delta tick uploads fewer bytes than the
   first full pack (``bench/smoke``). Metric
@@ -160,6 +164,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--carry-chunks", type=int, default=0,
                     help="with --carry-wall: pin the carry chunk count "
                          "(0 = the 20x ladder verdict's count)")
+    ap.add_argument("--scale-smoke", action="store_true",
+                    help="shape-only 20x proof: the dispatch ladder at "
+                         "1M pods / 100k nodes over 8 devices, the "
+                         "estimator breakdown and B3/B4 launch "
+                         "geometries at the lane block (no solve)")
     ap.add_argument("--smoke", action="store_true",
                     help="five incremental ticks on a small cluster; the "
                          "delta tick must ship fewer bytes than the first "
@@ -221,6 +230,8 @@ def metric_for(args) -> tuple:
         return "watch_soak_completed_ticks", "count"
     if args.smoke:
         return "bench_smoke_delta_upload_bytes", "bytes"
+    if args.scale_smoke:
+        return "scale_smoke_20x_shape_proof_s", "s"
     if args.serve_smoke:
         return "serve_smoke_agent_plan_ms", "ms"
     if args.sched_smoke:
@@ -501,8 +512,8 @@ def run_latency(args, device, metric: str, unit: str) -> tuple:
     packed, pack_s, gen_s, client, store, pdbs = build_problem(
         spec, args.seed, pack_repeats=5
     )
-    # the dispatch ladder on one device: always "single" (the mesh tiers
-    # come with the multi-GPU slice)
+    # the dispatch ladder over the bench's one device: always "single"
+    # (the mesh tiers: chip smoke phase 13, bench --scale-smoke)
     shapes = solver_memory.packed_shapes(packed)
     layout = solver_carry.carry_layout(packed)
     tier = solver_memory.pick_tier(
@@ -892,6 +903,12 @@ def run(argv=None) -> tuple:
             from k8s_spot_rescheduler_tpu_torch.bench.smoke import run_smoke
 
             mode = run_smoke
+        elif args.scale_smoke:
+            from k8s_spot_rescheduler_tpu_torch.bench.scale_smoke import (
+                run_scale_smoke,
+            )
+
+            mode = run_scale_smoke
         elif args.serve_smoke or args.sched_smoke:
             from k8s_spot_rescheduler_tpu_torch.bench import service_smoke
 

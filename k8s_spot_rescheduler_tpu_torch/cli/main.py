@@ -36,10 +36,14 @@ transport and in the service's batch window — testing only.
 each housekeeping tick under DIR (``utils/tracing.device_trace``: CPU
 activities, and the card's where there is one).
 
-Not in the parser yet, so argparse refuses them, each with the later
-slice that brings it: the mesh and memory ladder (``--mesh-shape``,
-``--auto-shard``, ``--solver-hbm-budget``, ``--carry-chunks``: multiple
-GPUs, ROADMAP Queue 1 item 5); the JAX-only ``--jax-cache-dir`` goes.
+The mesh and memory ladder: ``--solver sharded`` runs first-fit and
+best-fit over the 2-D device mesh of ``--mesh-shape AxB`` (default:
+inferred from the device count); ``--auto-shard`` (on by default)
+reroutes a problem past one device's ``--solver-hbm-budget`` down the
+ladder, whose carry-streamed rung streams ``--carry-chunks`` spot
+chunks (0 = sized to the budget). The mesh is laid over every visible
+card (``[cpu]`` with ``--device cpu``). The JAX-only
+``--jax-cache-dir`` goes: argparse refuses it.
 
 ``--debug-endpoints true`` serves ``/debug/trace`` and ``/debug/flight``
 (redacted) on the ``--serve`` process; off (the default) both answer
@@ -106,7 +110,11 @@ def build_parser() -> argparse.ArgumentParser:
     # --- planner knobs ---
     p.add_argument("--solver", default=d.solver, choices=list(SOLVERS),
                    help="torch = the union with kernels B1/B2 on --device; "
-                        "numpy = the serial host oracle")
+                        "numpy = the serial host oracle; sharded = "
+                        "first-fit and best-fit over the 2-D device mesh")
+    p.add_argument("--mesh-shape", default="", type=_mesh_shape,
+                   help="cand x spot device mesh for --solver sharded, "
+                        "e.g. 4x2 (default: infer from the device count)")
     p.add_argument("--device", default="cuda",
                    help="where the torch planner runs: cuda (default; "
                         "fails without a card) or cpu")
@@ -135,6 +143,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "columnar mirror when the cluster source "
                         "provides one; false = the reference-faithful "
                         "per-tick object rebuild")
+    p.add_argument("--auto-shard", type=_bool, default=d.auto_shard,
+                   help="reroute the solve down the mesh ladder when the "
+                        "problem exceeds one device's budget and the "
+                        "planner has more than one device")
+    p.add_argument("--solver-hbm-budget", type=int,
+                   default=d.solver_hbm_budget,
+                   help="per-device byte budget for the auto-shard "
+                        "decision (0 = the device's own)")
+    p.add_argument("--carry-chunks", type=int, default=d.carry_chunks,
+                   help="spot-chunk count of the carry-streamed narrow "
+                        "union tier (the auto-shard rung past the wide "
+                        "chunked-repair ceiling; repair stays live, "
+                        "results bit-identical); 0 = auto via "
+                        "solver/memory.pick_carry_chunks")
     p.add_argument("--incremental-device-cache", type=_bool,
                    default=d.incremental_device_cache,
                    help="keep the packed problem resident on the device "
@@ -332,6 +354,20 @@ def _bool(s: str) -> bool:
     return str(s).lower() in ("1", "true", "yes")
 
 
+def _mesh_shape(s: str) -> tuple:
+    """``AxB`` (e.g. ``4x2``) as a (cand, spot) tuple; empty = inferred."""
+    if not s:
+        return ()
+    try:
+        shape = tuple(int(x) for x in s.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        raise argparse.ArgumentTypeError(
+            f"mesh shape {s!r} is not AxB, e.g. 4x2")
+    return shape
+
+
 def start_watch_client(client, config: ReschedulerConfig, clock):
     """Wrap ``client`` in the watch-backed cache layer and sync it.
 
@@ -383,6 +419,9 @@ def config_from_args(args) -> ReschedulerConfig:
         use_columnar=args.use_columnar,
         solver=args.solver,
         repair_rounds=args.repair_rounds,
+        auto_shard=args.auto_shard,
+        solver_hbm_budget=args.solver_hbm_budget,
+        carry_chunks=args.carry_chunks,
         incremental_device_cache=args.incremental_device_cache,
         staged_chunk_lanes=args.staged_chunk_lanes,
         staged_early_exit=args.staged_early_exit,
@@ -417,6 +456,7 @@ def config_from_args(args) -> ReschedulerConfig:
         flight_dump_dir=args.flight_dump_dir,
         debug_endpoints=args.debug_endpoints,
         resources=tuple(r for r in args.resources.split(",") if r),
+        mesh_shape=args.mesh_shape or (1, 1),
     )
 
 

@@ -158,6 +158,18 @@ solver_repair_chunks = _gauge(
     "Spot chunks the repair phase of the last solve ran with (1 = "
     "unchunked, 0 = repair did not run).",
 )
+solver_carry_chunks = _gauge(
+    "solver_carry_chunks",
+    "Carry chunks of the last solve's carry-streamed tier (the spot axis "
+    "streamed in this many ordered chunks with narrow delta carries); "
+    "0 = a wide-carry tier ran.",
+)
+solver_carry_bytes = _gauge(
+    "solver_carry_bytes",
+    "Estimated per-device resident carry bytes of the last dispatched "
+    "solver program (the 'carries' term of solver/memory."
+    "estimate_union_hbm_breakdown at the dispatched tier's layout).",
+)
 tick_phase_duration = _histogram(
     "tick_phase_duration_seconds",
     "Wall time of each housekeeping-tick phase (observe / plan-dispatch "
@@ -449,10 +461,15 @@ def update_solver_mode(
     running: str,
     repair_dropped: bool,
     repair_chunks: int | None = None,
+    carry_chunks: int | None = None,
+    carry_bytes: int | None = None,
 ) -> None:
     """Expose what the last solve actually ran. The previous label pair
-    is zeroed (not removed) so dashboards see a clean 1-of-N encoding.
-    ``repair_chunks`` None leaves its gauge untouched."""
+    is zeroed (not removed) so dashboards see a clean 1-of-N encoding
+    and a reroute is a visible edge. ``repair_chunks``, ``carry_chunks``
+    and ``carry_bytes`` mirror the dispatch decision into their gauges;
+    None (or a negative ``carry_bytes``: no estimate) leaves a gauge
+    untouched."""
     prev = _last_solver_mode[0]
     if prev is not None and prev != (configured, running):
         solver_mode.labels(*prev).set(0)
@@ -461,6 +478,10 @@ def update_solver_mode(
     repair_unavailable.set(1 if repair_dropped else 0)
     if repair_chunks is not None:
         solver_repair_chunks.set(repair_chunks)
+    if carry_chunks is not None:
+        solver_carry_chunks.set(carry_chunks)
+    if carry_bytes is not None and carry_bytes >= 0:
+        solver_carry_bytes.set(carry_bytes)
 
 
 def update_incremental_tick(report) -> None:

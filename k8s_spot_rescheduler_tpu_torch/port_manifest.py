@@ -7,10 +7,10 @@ dicts, merged by its ``hot_programs.collect()`` over the modules of
 or ``service.tenant_batch``. This table maps every one of those names to
 the qualified name (``module:attribute``) of the port's twin, a tuple of
 them where the program became more than one function, or to
-``PENDING`` where the port has no twin yet. ``tests/
-test_torch_manifest.py`` holds it against ``collect()``: every name is
-a key, every twin resolves by ``importlib``, and the pending set is the
-one stated here.
+``PENDING`` where the port has no twin yet; no name is pending now.
+``tests/test_torch_manifest.py`` holds it against ``collect()``: every
+name is a key, every twin resolves by ``importlib``, and the pending
+set is the one stated there.
 
 Plain data: importing this module imports nothing else of the port.
 """
@@ -48,13 +48,19 @@ PORT_MANIFEST: Dict[str, Union[str, Tuple[str, ...]]] = {
         _P + "ops.ffd_kernels:plan_ffd_chunked",
     ),
     "pallas.stream_best_fit": _P + "ops.ffd_kernels:plan_stream_bf_kernel",
-    # multiple devices (ROADMAP Queue 1 item 7)
-    "sharded.ffd_2d": PENDING,
-    "sharded.union_cand": PENDING,
-    "sharded.union_cand_carry": PENDING,
-    # the planner service's tenant batch; its carry tier is pending
+    # multiple devices: the 2-D tier and the cand tier's block programs
+    "sharded.ffd_2d": _P + "parallel.sharded_ffd:plan_ffd_sharded",
+    "sharded.union_cand": _P + "parallel.sharded_ffd:plan_union_cand_sharded",
+    "sharded.union_cand_carry": (
+        _P + "parallel.sharded_ffd:plan_union_cand_sharded",
+        _P + "solver.fallback:with_repair_streamed",
+    ),
+    # the planner service's tenant batch and its carry tier
     "service.tenant_batch": _P + "parallel.tenant_batch:plan_tenants_batched",
-    "service.tenant_batch_carry": PENDING,
+    "service.tenant_batch_carry": (
+        _P + "parallel.tenant_batch:plan_tenants_batched",
+        _P + "solver.fallback:with_repair_streamed",
+    ),
     "service.tenant_delta_scatter": _P + "parallel.tenant_batch:apply_tenant_deltas",
     "service.tenant_schedule": _P + "parallel.tenant_batch:plan_tenants_scheduled",
     # the resident cache's delta write

@@ -1,6 +1,6 @@
 """The multi-tenant planner service: one card planning for a fleet.
 
-The port of the JAX package's ``service/server.py`` on one device. A
+The port of the JAX package's ``service/server.py``. A
 card that serves one cluster is idle nearly all the time: the device
 solve of a tick takes milliseconds, the housekeeping interval seconds.
 So per-cluster agents (``service/agent.py``) ship their packed problems
@@ -65,8 +65,11 @@ Threads: HTTP handlers decode, enqueue and wait; the batching scheduler
 thread (``start_scheduler``) assembles, scatters and solves, with the
 service's CUDA device set on it. Without a scheduler thread
 (``drain_once`` from the caller: the virtual-clock seam of the tests and
-of in-process callers) the caller's thread solves. Not ported here: the
-tenant mesh (one device: ``_ensure_mesh`` is None).
+of in-process callers) the caller's thread solves. The tenant mesh: with more
+than one of its ``devices`` (every visible card by default), a batch's
+tenant axis is padded with inert all-zero tenants to a multiple of the
+mesh (``_pad_tenant_axis``) and split into one block a device
+(``parallel/tenant_batch``); the pads are sliced off before any reply.
 
 Debug surface (``debug_endpoints``, ``--debug-endpoints``; off by
 default, and then both paths answer 404): ``GET /debug/trace`` answers
@@ -112,6 +115,10 @@ from k8s_spot_rescheduler_tpu_torch.models.tensors import (
 from k8s_spot_rescheduler_tpu_torch.ops.ffd_kernels import (
     LAUNCHES,
     is_device_fault,
+)
+from k8s_spot_rescheduler_tpu_torch.parallel.mesh import (
+    default_devices,
+    make_tenant_mesh,
 )
 from k8s_spot_rescheduler_tpu_torch.parallel.tenant_batch import (
     apply_tenant_deltas,
@@ -259,6 +266,7 @@ class PlannerService:
         max_batch_tenants: int = 0,
         clock: Optional[Clock] = None,
         device=None,
+        devices=None,
     ):
         self.config = config
         self.clock = clock or RealClock()
@@ -272,6 +280,16 @@ class PlannerService:
         if self.device.type == "cuda" and self.device.index is None:
             # the scheduler thread sets its device by index
             self.device = torch.device("cuda", torch.cuda.current_device())
+        # the tenant mesh's devices (every visible card for a cuda
+        # service, else the CPU; a list may name one card several
+        # times); more than one lays batches over a tenant mesh
+        self.devices = (
+            [self.device] if config.solver == "numpy"
+            else list(devices) if devices is not None
+            else default_devices(self.device)
+        )
+        self._mesh = None
+        self._mesh_ready = False
         # the fault of the card's kernels that ended the service, and
         # the callbacks told of it (ServiceServer stops serving)
         self.fatal: Optional[BaseException] = None
@@ -719,6 +737,7 @@ class PlannerService:
             # to repeat per pop under the queue lock
             cap = bucketing.max_batch_tenants(
                 bucket,
+                budget_bytes=self.config.solver_hbm_budget,
                 device=self.device,
                 repair_spot_chunks=(
                     1
@@ -1368,9 +1387,13 @@ class PlannerService:
         try:
             if self.chaos is not None:
                 self.chaos.on_batch()
+            # the schedule batch splits over the tenant mesh like the
+            # single-plan batch: pad T to a multiple, trim after
+            T = stacked.slot_req.shape[0]
             return self._run_on_card(
-                self._sched_programs[horizon], stacked, split
-            )
+                self._sched_programs[horizon],
+                self._pad_tenant_axis(stacked), split,
+            )[:T]
         except Exception as err:  # noqa: BLE001, exception-discipline — a device failure on the schedule program flips the SAME watchdog edge (gauge + flight) as a single-plan batch, then drain_once's per-batch containment answers the tenants typed
             if wd is not None and not is_device_fault(err):
                 self._note_device_edge(wd.note_error(err))
@@ -1641,13 +1664,44 @@ class PlannerService:
         configured solver name can never silently misreport)."""
         if self.config.solver == "numpy":
             return "numpy-oracle"
+        mesh = self._ensure_mesh()
+        over = f", tenant mesh of {mesh.devices.size}" if mesh else ""
         if self.device.type == "cuda":
-            return "tenant-batch(torch union, B1t/B2t)"
-        return "tenant-batch(torch union, plain B1t/B2t on cpu)"
+            return f"tenant-batch(torch union, B1t/B2t{over})"
+        return f"tenant-batch(torch union, plain B1t/B2t on cpu{over})"
 
     def _ensure_mesh(self):
-        """The tenant mesh: not ported, one device (None)."""
-        return None
+        """The tenant mesh over the service's ``devices``, built once:
+        None with one device (the batch then solves on ``device``),
+        shared by the batch and schedule programs."""
+        if not self._mesh_ready:
+            if len(self.devices) > 1:
+                self._mesh = make_tenant_mesh(self.devices)
+            self._mesh_ready = True
+        return self._mesh
+
+    def _pad_tenant_axis(self, stacked: PackedCluster) -> PackedCluster:
+        """Pad the tenant axis to a multiple of the mesh size, so the
+        batch splits into one block a device; pad tenants are all-zero
+        problems with no valid lane (found=False rows), sliced off by
+        the callers before any row reaches a reply."""
+        mesh = self._ensure_mesh()
+        if mesh is None:
+            return stacked
+        T = stacked.slot_req.shape[0]
+        pad = (-T) % int(mesh.devices.size)
+        if not pad:
+            return stacked
+        if isinstance(stacked.slot_req, torch.Tensor):
+            return PackedCluster(*(
+                torch.cat([f, f.new_zeros((pad,) + tuple(f.shape[1:]))])
+                for f in stacked
+            ))
+        return PackedCluster(*(
+            np.concatenate([np.asarray(f),
+                            np.zeros((pad,) + f.shape[1:], f.dtype)])
+            for f in stacked
+        ))
 
     def _on_card(self):
         """The service's CUDA device as the current one (a no-op on the
@@ -1706,7 +1760,9 @@ class PlannerService:
                 ),
                 best_fit_fallback=cfg.fallback_best_fit,
             )
-        return self._run_on_card(self._batched, stacked, split)
+        T = stacked.slot_req.shape[0]
+        return self._run_on_card(
+            self._batched, self._pad_tenant_axis(stacked), split)[:T]
 
     def _solve_host(self, stacked: PackedCluster, split=None) -> np.ndarray:
         """The numpy-oracle batch path (--solver numpy, and off the card
@@ -1860,6 +1916,7 @@ class ServiceServer:
         max_batch_tenants: int = 0,
         clock: Optional[Clock] = None,
         device=None,
+        devices=None,
     ):
         self.config = config
         self.service = PlannerService(
@@ -1869,6 +1926,7 @@ class ServiceServer:
             max_batch_tenants=max_batch_tenants,
             clock=clock,
             device=device,
+            devices=devices,
         )
         # the kernels are built and loaded before the socket listens
         self.service.prepare()
@@ -2391,7 +2449,8 @@ class ServiceServer:
         configured = int(self.config.service_resync_ingest_budget)
         if configured > 0:
             return configured
-        return memory.device_hbm_budget(self.service.device)
+        return int(self.config.solver_hbm_budget) or memory.device_hbm_budget(
+            self.service.device)
 
     def admit_resync_ingest(self, packed):
         """Gate ONE cache-seeding full-pack resync ingest through the

@@ -19,7 +19,11 @@ either way, since a skipped pass would only be consumed on lanes with
   greedy passes prove every valid lane it is skipped.
 
 So ``with_best_fit_fallback`` takes no sync and ``with_repair`` and
-``with_repair_streamed`` one.
+``with_repair_streamed`` one. Their solves keep the two stages as
+attributes (``solve.greedy(packed)``, then ``solve.finish(packed,
+union)``, which holds the sync), so a caller with several lane blocks
+(``parallel/sharded_ffd``) launches every block's greedy passes before
+any block syncs.
 """
 
 from __future__ import annotations
@@ -45,6 +49,28 @@ def _needs_repair(packed, greedy: SolveResult) -> bool:
     """The one host sync of a union solve: did the greedy passes leave a
     valid lane unproven?"""
     return bool((packed.cand_valid & ~greedy.feasible).any())
+
+
+def _staged(greedy, finish):
+    """``solve(packed) = finish(packed, greedy(packed))``, with both
+    stages kept as attributes of ``solve``."""
+
+    def solve(packed) -> SolveResult:
+        return finish(packed, greedy(packed))
+
+    solve.greedy = greedy
+    solve.finish = finish
+    return solve
+
+
+def stages(solve):
+    """(greedy, finish) of a union solve: its stages where it keeps
+    them, else the whole solve and a ``finish`` that returns the union
+    as it is."""
+    return (
+        getattr(solve, "greedy", solve),
+        getattr(solve, "finish", lambda packed, union: union),
+    )
 
 
 def with_best_fit_fallback(solve_fn):
@@ -76,13 +102,12 @@ def with_repair(solve_fn, rounds: int, spot_chunks: int = 1):
             )
         return plan_repair(packed, rounds=rounds)
 
-    def solve(packed) -> SolveResult:
-        union = greedy(packed)
+    def finish(packed, union: SolveResult) -> SolveResult:
         if not _needs_repair(packed, union):
             return union
         return _prefer(union, repair(packed))
 
-    return solve
+    return _staged(greedy, finish)
 
 
 def with_repair_streamed(
@@ -139,12 +164,15 @@ def with_repair_streamed(
                 best_fit=True,
             )
 
-    def solve(packed) -> SolveResult:
+    def greedy(packed) -> SolveResult:
         ff = first_fit(packed)
         if not best_fit_fallback:
             return ff
-        union = _prefer(ff, best_fit(packed))
-        if rounds <= 0 or not _needs_repair(packed, union):
+        return _prefer(ff, best_fit(packed))
+
+    def finish(packed, union: SolveResult) -> SolveResult:
+        if (not best_fit_fallback or rounds <= 0
+                or not _needs_repair(packed, union)):
             return union
         return _prefer(
             union,
@@ -157,7 +185,7 @@ def with_repair_streamed(
             ),
         )
 
-    return solve
+    return _staged(greedy, finish)
 
 
 def union_program(

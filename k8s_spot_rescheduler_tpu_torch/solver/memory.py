@@ -8,11 +8,12 @@ program that fits a device's budget: the single-device union, the
 lane-sharded union, the same with spot-chunked repair, the
 carry-streamed narrow union, and last the 2-D layout without repair.
 
-With one device ``pick_tier`` always answers ``"single"``; the
-carry-streamed block program (``solver/fallback.union_program`` with
-``carry_chunks`` >= 1) is what runs on each device of the sharded
-tiers. The estimate selects no device: ``device_hbm_budget`` reads the
-card's memory only when it is handed a CUDA device.
+With one device ``pick_tier`` always answers ``"single"``, as does
+``should_shard``; the planner's ladder (``planner/solver_planner.
+TorchSolverPlanner._maybe_shard``) counts the devices of its mesh,
+which may name one card several times. The estimate selects no
+device: ``device_hbm_budget`` reads the card's memory only when it is
+handed a CUDA device.
 """
 
 from __future__ import annotations
@@ -251,3 +252,24 @@ def device_hbm_budget(device=None) -> int:
     if device is not None and torch.device(device).type == "cuda":
         _, total = torch.cuda.mem_get_info(torch.device(device))
     return int((total or DEFAULT_HBM_BYTES) * BUDGET_FRACTION)
+
+
+def should_shard(
+    packed,
+    n_devices: int,
+    *,
+    budget_bytes: Optional[int] = None,
+    repair_spot_chunks: int = 1,
+) -> bool:
+    """True when the union won't fit one device's budget AND there is
+    more than one device to shard it over (one device keeps the
+    single-device path). ``repair_spot_chunks=0``: the configured
+    program has no repair phase, whose working set then does not
+    count."""
+    if n_devices <= 1:
+        return False
+    budget = budget_bytes if budget_bytes else device_hbm_budget()
+    est = estimate_union_hbm_bytes(
+        *packed_shapes(packed), repair_spot_chunks=repair_spot_chunks
+    )
+    return est > budget

@@ -335,6 +335,32 @@ SERVICE_PATH = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "data", "service_seed0.json"
 )
 
+# the mesh tiers (chip smoke phase 13), frozen from the JAX package on
+# ``SHARDED_DEVICES`` virtual CPU devices into ``SHARDED_PATH``
+# (``tests/torch_port_fixtures.py sharded``): config 3's controller pack
+# (``SHARDED_SLOTS`` pod slots) through each rung of the dispatch ladder
+# (name, the ladder's tier kind, ``mesh_shape``), the contended pack and
+# the harvested tick through the 2-D tier and the carry tier
+# (``SHARDED_PACKS``), the CLI with ``SHARDED_CLI_ARGS`` and the root
+# ``bench.py --scale-smoke`` row
+SHARDED_DEVICES = 4
+SHARDED_SLOTS = 64
+SHARDED_RUNGS = (
+    ("cand", "cand", (1, 1)),
+    ("cand-chunked", "cand-chunked", (1, 1)),
+    ("cand-carry", "cand-carry", (1, 1)),
+    ("2d-4x1", "2d", (4, 1)),
+    ("2d-2x2", "2d", (2, 2)),
+)
+SHARDED_PACKS = ("contended", "harvest")
+SHARDED_PACK_RUNGS = (("2d-2x2", "2d", (2, 2)), ("cand-carry", "cand-carry", (1, 1)))
+SHARDED_CLI_ARGS = ("--cluster", "synthetic:3", "--ticks", "3", "--solver",
+                    "sharded", "--mesh-shape", "1x1", "--no-metrics-server",
+                    "--node-drain-delay", "1s")
+SHARDED_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "data", "sharded_seed0.npz"
+)
+
 # the fault layers' runs (``io/chaos``), frozen from the JAX package into
 # ``CHAOS_PATH`` (``tests/torch_port_fixtures.py chaos``), each from a
 # fresh ``generate_cluster(CONFIGS[config], seed,

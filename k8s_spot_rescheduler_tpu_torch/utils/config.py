@@ -6,12 +6,10 @@ globals it writes into (reference nodes/nodes.go:31-42:
 ``OnDemandNodeLabel``/``SpotNodeLabel``/``PriorityThreshold``) as one
 explicit, immutable dataclass that is passed down the stack. It is the
 one source of the planner's defaults too
-(``planner/solver_planner.TorchSolverPlanner`` takes it).
-
-Knobs of modules not yet ported are left out, with their modules: the
-mesh and memory ladder (``mesh_shape``, ``auto_shard``,
-``solver_hbm_budget``, ``carry_chunks``); the JAX-only
-``jax_cache_dir`` goes.
+(``planner/solver_planner.TorchSolverPlanner`` takes it). The JAX-only
+``jax_cache_dir`` goes. The mesh knobs are the JAX package's; the
+devices a mesh is laid over are not a knob but the planner's and the
+service's ``devices`` argument.
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-SOLVERS = ("torch", "numpy")
+SOLVERS = ("torch", "numpy", "sharded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +48,11 @@ class ReschedulerConfig:
     - ``max_pods_per_node_hint`` — static padding bound for the solver's pod
       axis; the packer grows it if a node exceeds the hint.
     - ``solver``        — "torch" (the union with kernels B1/B2 on the
-      planner's device, the default) or "numpy" (the serial host oracle).
+      planner's device, the default), "numpy" (the serial host oracle)
+      or "sharded" (first-fit and best-fit over the 2-D device mesh,
+      ``parallel/sharded_ffd.plan_ffd_sharded``, under the union).
+    - ``mesh_shape``    — (candidate-axis, spot-axis) device mesh for the
+      sharded solver; (1, 1) = inferred from the device count.
     - ``max_drains_per_tick`` — the reference hard-codes one drain per tick
       (rescheduler.go:286 ``break``); keep 1 for faithful behavior.
     - ``fallback_best_fit`` — candidates unprovable under the reference's
@@ -59,6 +61,18 @@ class ReschedulerConfig:
     - ``repair_rounds`` — bounded eject-and-reinsert local-search rounds
       (solver/repair.py) for lanes both greedy passes fail; repaired
       placements are re-proven from scratch before use. 0 disables.
+    - ``auto_shard`` — when the packed problem's estimated footprint
+      exceeds one device's budget (solver/memory.py) and the planner
+      has more than one device, the solve is rerouted down the ladder:
+      the cand-sharded union per lane block (repair intact), the same
+      with spot-chunked repair, the carry-streamed narrow union, and
+      last the 2-D cand x spot layout (first-fit and best-fit; repair
+      unavailable, alarmed by ``repair_unavailable``). Off → the
+      configured solver runs unconditionally.
+    - ``solver_hbm_budget`` — per-device byte budget for that decision;
+      0 = the device's own (the card's memory x 0.85, or 16 GB x 0.85).
+    - ``carry_chunks`` — spot chunks of the carry-streamed tier; 0 =
+      sized to the budget (solver/memory.pick_carry_chunks).
     """
 
     running_in_cluster: bool = True
@@ -79,9 +93,13 @@ class ReschedulerConfig:
     resources: Sequence[str] = ("cpu", "memory")
     max_pods_per_node_hint: int = 64
     solver: str = "torch"
+    mesh_shape: tuple = (1, 1)
     max_drains_per_tick: int = 1
     fallback_best_fit: bool = True
     repair_rounds: int = 8
+    auto_shard: bool = True
+    solver_hbm_budget: int = 0
+    carry_chunks: int = 0
     # Observe via the incrementally-maintained columnar mirror
     # (models/columnar.py) when the cluster client provides one — the
     # vectorized replacement for the per-tick object-model rebuild. Off →
@@ -222,6 +240,8 @@ class ReschedulerConfig:
             raise ValueError("max_drains_per_tick must be >= 1")
         if self.staged_chunk_lanes < 0:
             raise ValueError("staged_chunk_lanes must be >= 0 (0 = unstaged)")
+        if self.carry_chunks < 0:
+            raise ValueError("carry_chunks must be >= 0 (0 = auto)")
         if self.schedule_horizon < 0:
             raise ValueError(
                 "schedule_horizon must be >= 0 (0 = schedules off)"

@@ -381,18 +381,18 @@ def test_cli_drains_as_the_reference(caplog):
 
 
 def test_cli_refuses_the_flags_of_later_slices():
-    """The flags whose modules are not ported exit 2, and so does an
-    unknown chaos profile; the kube source, the watch, the mirror and
-    the lease are accepted (the drains through a stub server:
-    ``tests/test_torch_kube.py``), and so are the planner service's and
-    its agents' (``tests/test_torch_service.py``), the fault layers'
-    (``tests/test_torch_chaos.py``), ``--trace-dir``
-    (``tests/test_torch_tracing.py``) and ``--debug-endpoints``
-    (``tests/test_torch_debug.py``)."""
+    """The JAX-only ``--jax-cache-dir`` exits 2, and so do an unknown
+    chaos profile and a mesh shape that is not AxB; the kube source, the
+    watch, the mirror and the lease are accepted (the drains through a
+    stub server: ``tests/test_torch_kube.py``), and so are the planner
+    service's and its agents' (``tests/test_torch_service.py``), the
+    fault layers' (``tests/test_torch_chaos.py``), ``--trace-dir``
+    (``tests/test_torch_tracing.py``), ``--debug-endpoints``
+    (``tests/test_torch_debug.py``) and the mesh knobs
+    (``tests/test_torch_sharding.py``)."""
     for argv in (["--service-chaos-profile", "flaky"],
-                 ["--chaos-profile", "flaky"], ["--mesh-shape", "2x2"],
-                 ["--auto-shard", "true"], ["--solver-hbm-budget", "1"],
-                 ["--carry-chunks", "2"], ["--jax-cache-dir", "/tmp/j"]):
+                 ["--chaos-profile", "flaky"], ["--mesh-shape", "2x"],
+                 ["--mesh-shape", "0x2"], ["--jax-cache-dir", "/tmp/j"]):
         with pytest.raises(SystemExit) as exc:
             port_main(argv)
         assert exc.value.code == 2, argv

@@ -813,8 +813,7 @@ def test_service_flags_flow_into_config_and_refused_flags_stay_refused():
     assert (chaos.service_chaos_profile, chaos.service_chaos_seed) == (
         "heavy", 4)
     for flag in ("--service-chaos-profile", "--chaos-profile", "--mesh-shape",
-                 "--auto-shard", "--solver-hbm-budget", "--carry-chunks",
-                 "--jax-cache-dir"):
+                 "--solver-hbm-budget", "--carry-chunks", "--jax-cache-dir"):
         with pytest.raises(SystemExit):
             build_parser().parse_args([flag, "x"])
     assert not config_from_args(build_parser().parse_args([])).debug_endpoints

@@ -1177,9 +1177,210 @@ def freeze_bench(parts=tuple(BENCH_PARTS), seed: int = testing.BENCH_SEED) -> st
     return testing.BENCH_PATH
 
 
+def sharded_controller_pack(seed: int = 0):
+    """Config 3's pack as the controller's planner packs it: the columnar
+    mirror with ``testing.SHARDED_SLOTS`` pod slots (the default
+    ``max_pods_per_node_hint``), C=2560 K=64 S=2560."""
+    from k8s_spot_rescheduler_tpu.io.synthetic import (
+        CONFIGS,
+        generate_quality_cluster,
+    )
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    spec = CONFIGS[3]
+    cfg = ReschedulerConfig(resources=spec.resources)
+    client = generate_quality_cluster(spec, seed)
+    store = client.columnar_store(
+        cfg.resources,
+        on_demand_label=cfg.on_demand_node_label,
+        spot_label=cfg.spot_node_label,
+    )
+    packed, _ = store.pack(
+        client.list_pdbs(),
+        priority_threshold=cfg.priority_threshold,
+        pad_slots=testing.SHARDED_SLOTS,
+    )
+    return packed
+
+
+def rung_budget(kind: str, packed, n_devices: int) -> int:
+    """A ``solver_hbm_budget`` at which the ladder (``solver/memory.
+    pick_tier`` over ``n_devices``, repair wanted, the pack's exact carry
+    layout) lands on tier ``kind``: for "cand-carry" with more than one
+    carry chunk, so the blocks' first-fit is kernel B3."""
+    from k8s_spot_rescheduler_tpu.solver import carry, memory
+
+    C, K, S, R, W, A = memory.packed_shapes(packed)
+    cpb = carry.plane_bytes(carry.carry_layout(packed), R, A)
+    lane = -(-C // n_devices)
+    est = memory.estimate_union_hbm_bytes
+    candidates = [est(C, K, S, R, W, A) - 1, 1]
+    n = 1
+    while -(-S // n) >= memory.MIN_REPAIR_CHUNK:
+        candidates += [
+            est(lane, K, S, R, W, A, repair_spot_chunks=n),
+            est(lane, K, S, R, W, A, repair_spot_chunks=n) - 1,
+            est(lane, K, S, R, W, A, repair_spot_chunks=n, carry_chunks=n,
+                carry_plane_bytes=cpb),
+        ]
+        n *= 2
+    for budget in sorted(set(candidates), reverse=True):
+        tier = memory.pick_tier(C, K, S, R, W, A, n_devices=n_devices,
+                                budget_bytes=budget, carry_plane_bytes=cpb)
+        if tier.kind == kind and (kind != "cand-carry"
+                                  or tier.carry_chunks > 1):
+            return int(budget)
+    raise ValueError(f"no budget lands {packed_shapes_str(packed)} on {kind}")
+
+
+def packed_shapes_str(packed) -> str:
+    from k8s_spot_rescheduler_tpu.solver import memory
+
+    return "C=%d K=%d S=%d R=%d W=%d A=%d" % memory.packed_shapes(packed)
+
+
+def reference_rung(packed, rung_kind: str, mesh_shape, budget: int) -> dict:
+    """The JAX package's ``SolverPlanner`` at ``budget`` (and
+    ``mesh_shape``) on ``packed``: its dispatch decision and the
+    selection vector of the program it dispatched."""
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+    from k8s_spot_rescheduler_tpu.utils.config import ReschedulerConfig
+
+    planner = SolverPlanner(ReschedulerConfig(
+        solver_hbm_budget=budget, mesh_shape=tuple(mesh_shape)))
+    fused, label, dropped, repair_chunks, carry_chunks, carry_bytes = (
+        planner._maybe_shard(packed))
+    if fused is planner._fused:
+        raise ValueError(f"budget {budget} did not reroute ({label})")
+    return {
+        "selection": np.asarray(fused(packed), np.int32),
+        "label": np.asarray(label),
+        "dispatch": np.asarray(
+            [int(dropped), repair_chunks, carry_chunks, carry_bytes],
+            np.int64),
+        "budget": np.int64(budget),
+        "kind": np.asarray(rung_kind),
+    }
+
+
+def reference_rung_lanes(packed, kind: str, mesh_shape) -> dict:
+    """The JAX package's lanes on ``packed`` of the 2-D union
+    (``plan_ffd_sharded`` first-fit ∪ best-fit over ``mesh_shape``) or
+    of the carry tier (``plan_union_cand_sharded``, 8 repair rounds,
+    ``STREAM_CHUNKS`` carry chunks under the pack's carry layout)."""
+    import functools
+
+    import jax
+
+    from k8s_spot_rescheduler_tpu.parallel.mesh import (
+        make_cand_mesh,
+        make_mesh,
+    )
+    from k8s_spot_rescheduler_tpu.parallel.sharded_ffd import (
+        plan_ffd_sharded,
+        plan_union_cand_sharded,
+    )
+    from k8s_spot_rescheduler_tpu.solver.carry import carry_layout
+    from k8s_spot_rescheduler_tpu.solver.fallback import with_best_fit_fallback
+
+    if kind == "2d":
+        solve = with_best_fit_fallback(
+            functools.partial(plan_ffd_sharded, make_mesh(tuple(mesh_shape))))
+    else:
+        solve = functools.partial(
+            plan_union_cand_sharded, make_cand_mesh(), rounds=8,
+            carry_chunks=STREAM_CHUNKS, carry_layout=carry_layout(packed))
+    res = jax.jit(solve)(packed)
+    return {"feasible": np.asarray(res.feasible, bool),
+            "assignment": np.asarray(res.assignment, np.int32)}
+
+
+def reference_sharded_cli_run(seed: int = 0) -> dict:
+    """What the JAX package's CLI does with ``testing.SHARDED_CLI_ARGS``,
+    in process (``reference_cli_run``'s route)."""
+    from k8s_spot_rescheduler_tpu.cli.main import build_parser, config_from_args
+    from k8s_spot_rescheduler_tpu.io.synthetic import CONFIGS, generate_cluster
+    from k8s_spot_rescheduler_tpu.loop.controller import Rescheduler
+    from k8s_spot_rescheduler_tpu.planner.solver_planner import SolverPlanner
+
+    args = build_parser().parse_args(list(testing.SHARDED_CLI_ARGS))
+    cfg = config_from_args(args)
+    client = generate_cluster(CONFIGS[3], seed, reschedule_evicted=True)
+    r = Rescheduler(client, SolverPlanner(cfg), cfg, clock=client.clock,
+                    recorder=client)
+    return {
+        "args": list(testing.SHARDED_CLI_ARGS),
+        "digest": testing.cluster_digest(client),
+        "records": testing.run_ticks(r, client, args.ticks),
+    }
+
+
+def reference_scale_smoke() -> dict:
+    """The root ``bench.py --scale-smoke`` row."""
+    import types
+
+    bench = _root_bench()
+    return _root_row(bench.run_scale_smoke, types.SimpleNamespace(),
+                     "scale_smoke_20x_shape_proof_s", "s")
+
+
+def freeze_sharded(seed: int = 0) -> str:
+    """Write ``testing.SHARDED_PATH``: config 3's controller pack and the
+    JAX package's answers on it at every rung of ``testing.
+    SHARDED_RUNGS`` (``reference_rung``, with the budget that lands on
+    it), the contended pack's and the harvested tick's selections and
+    lanes at ``testing.SHARDED_PACK_RUNGS``, the sharded CLI run's
+    records and the scale-smoke row (JSON). Runs on
+    ``testing.SHARDED_DEVICES`` virtual CPU devices, as the chip smoke's
+    planner lays its mesh over that many."""
+    import jax
+
+    n = len(jax.devices())
+    if n != testing.SHARDED_DEVICES:
+        raise RuntimeError(f"{n} JAX devices, not {testing.SHARDED_DEVICES}: "
+                           "run `python -m tests.torch_port_fixtures sharded` "
+                           "alone")
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import load_npz
+
+    packed = sharded_controller_pack(seed)
+    out = {}
+    for name, kind, mesh_shape in testing.SHARDED_RUNGS:
+        budget = rung_budget(kind, packed, n)
+        for k, v in reference_rung(packed, kind, mesh_shape, budget).items():
+            out[f"config3_{name}_{k}"] = v
+    sources = {"contended": frozen_path(CONTENDED, seed),
+               "harvest": testing.HARVEST_PATH}
+    from k8s_spot_rescheduler_tpu.models.tensors import PackedCluster
+
+    for pack_name in testing.SHARDED_PACKS:
+        host = PackedCluster(*load_npz(sources[pack_name])[0])
+        for name, kind, mesh_shape in testing.SHARDED_PACK_RUNGS:
+            budget = rung_budget(kind, host, n)
+            rung = reference_rung(host, kind, mesh_shape, budget)
+            rung.update(reference_rung_lanes(host, kind, mesh_shape))
+            for k, v in rung.items():
+                out[f"{pack_name}_{name}_{k}"] = v
+    out["cli"] = np.asarray(json.dumps(reference_sharded_cli_run(seed)))
+    out["scale_smoke"] = np.asarray(json.dumps(reference_scale_smoke(),
+                                               sort_keys=True))
+    os.makedirs(DATA_DIR, exist_ok=True)
+    save_npz(testing.SHARDED_PATH, packed, seed=np.int32(seed),
+             devices=np.int32(n), **out)
+    return testing.SHARDED_PATH
+
+
 def main(argv) -> int:
+    if "sharded" in (argv or ()):
+        # before jax is imported: the mesh of the chip smoke's planner
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + f" --xla_force_host_platform_device_count="
+              f"{testing.SHARDED_DEVICES}").strip()
+        os.environ["JAX_PLATFORMS"] = "cpu"
     for arg in argv or ["3"]:
-        if arg == "ticks":
+        if arg == "sharded":
+            path = freeze_sharded()
+        elif arg == "ticks":
             path = freeze_ticks()
         elif arg == "service":
             path = reference_service()
