@@ -137,7 +137,9 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    tick (``data/replay_harvest_seed0.npz``, best-fit and repair fire;
    the device-only ms of the shipped union), ``--carry-wall`` on config
    3 at 4 chunks and at the ladder's count (B3/B4 and repair),
-   ``--smoke``, ``--pallas-smoke`` (B4 and B1 against the plain streamed
+   ``--smoke`` (its row ``ok`` with ``verify_protocol_ms``: the proto
+   tier over the port's protocol model, green in its own process),
+   ``--pallas-smoke`` (B4 and B1 against the plain streamed
    pass and the oracles), ``--chaos`` and ``--watch-soak`` at 300 ticks,
    every count held against the JAX package's frozen rows, each row's
    JSON on its own line;
@@ -2620,7 +2622,10 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
     count (feasible and valid lanes, chunk count, plane bytes, bucket
     key; B3 and B4 must launch), ``--smoke`` (the first full pack's
     bytes, the steady tick's delta lanes and staged chunks; every delta
-    smaller than the full pack), ``--pallas-smoke`` (no mismatch, B1 and
+    smaller than the full pack; the row ``ok`` with ``verify_protocol_ms``
+    > 0: the proto tier, ``python -m tools.analysis --tier proto
+    k8s_spot_rescheduler_tpu_torch``, ran green in its own process),
+    ``--pallas-smoke`` (no mismatch, B1 and
     B4 launched on each pack), ``--chaos`` and ``--watch-soak`` at 300
     ticks (every stat, no violation; the chaos soak's two scripted
     planner crashes are its only planner fallbacks). Each row's JSON on
@@ -2700,12 +2705,18 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
     for key in ("delta_pack_lanes", "chunks_solved", "chunks_skipped"):
         check(row[key] == want[key][-1], f"[11] --smoke {key}: {row[key]} "
               f"!= the JAX package's {want[key][-1]}")
+    # the proto tier (the port's protocol model explored and bound to its
+    # wire, agent and server) ran green in a subprocess of the smoke
+    check(row["ok"] and row.get("verify_protocol_ms", 0) > 0,
+          f"[11] --smoke: ok {row['ok']}, verify_protocol_ms "
+          f"{row.get('verify_protocol_ms')}")
     log(f"[11] bench --smoke ({row['metric']} = {row['value']}): uploads per "
         f"tick {ups} B (the JAX package's, its delta sections padded to "
         f"powers of two: {want['upload_bytes']} B), steady tick "
         f"{row['steady_tick_ms']:.3f} ms (plan.solve span "
         f"{row['span_solve_ms']:.3f} ms), chunks {row['chunks_solved']} "
         f"solved / {row['chunks_skipped']} skipped == the JAX package's; "
+        f"proto tier green, verify_protocol_ms {row['verify_protocol_ms']}; "
         f"launches {launches}; {wall:.1f} s, on {kind} [{card}]")
 
     # ---- --pallas-smoke --------------------------------------------------

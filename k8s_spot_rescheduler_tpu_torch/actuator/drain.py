@@ -63,8 +63,10 @@ def _evict_round(
         except Exception as err:  # noqa: BLE001 — retried until deadline
             return err
 
-    if len(pods) == 1:  # no pool for the common one-pod round
-        errs = [attempt(pods[0])]
+    if len(pods) == 1 or getattr(client, "serial_evictions", False):
+        # one pod, or an in-memory client (io/fake.py) whose outcome
+        # would otherwise follow the pool's thread order: in pod order
+        errs = [attempt(pod) for pod in pods]
     else:
         with ThreadPoolExecutor(
             max_workers=min(len(pods), EVICTION_POOL_SIZE)

@@ -6,11 +6,20 @@ cut to 64 on-demand and 64 spot nodes, 600 pods) runs five ticks of the
 incremental pipeline (``bench/__main__.run_incremental_ticks``, churn 3,
 16-lane staged chunks) on ``device``. It fails unless the steady delta
 tick uploads fewer bytes than the first full pack and does not repack.
-The row reports the span medians of the steady ticks. The reference's
-row also carries ``audit_jaxpr_ms`` and ``verify_protocol_ms``: the wall
-of two subprocesses that audit the JAX package's traced programs and
-its protocol model (``tools.analysis --tier jaxpr|proto``). They check
-the JAX package, not this one, so this row leaves both out.
+The row reports the span medians of the steady ticks, and
+``verify_protocol_ms``, the reference's key: the wall clock of a fresh
+subprocess, ``python -m tools.analysis --tier proto
+k8s_spot_rescheduler_tpu_torch`` from the checkout's root, which
+explores this package's protocol model (``service/protocol_model.py``)
+exhaustively and binds it to this package's wire, agent and server. A
+red verification prints the tail of its output on stderr and fails the
+smoke, as does a run past ``PROTO_TIMEOUT_S`` or a package that does not
+sit in a checkout of the repository: ``tools/`` ships with the checkout,
+not with this package, so an installed copy's ``--smoke`` says so and
+fails. The reference's other subprocess key, ``audit_jaxpr_ms``, stays
+out: the jaxpr tier audits programs that JAX traces, and this package
+has none. Nothing in this package imports ``tools``; only the
+subprocess runs it.
 
 ``--pallas-smoke`` (the reference's ``pallas_parity_smoke``, metric
 name kept): on a real observe-path pack plus two spot permutations of
@@ -27,7 +36,10 @@ lists what launched (empty there).
 from __future__ import annotations
 
 import dataclasses
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -35,6 +47,11 @@ SPAN_FIELDS = (("span_queue_ms", "service.queue-wait"),
                ("span_solve_ms", "plan.solve"),
                ("span_wire_ms", "wire.transfer"))
 CHUNK_COUNTS = (2, 3, 5)
+# the checkout's root, which holds tools/ beside this package
+ROOT = Path(__file__).resolve().parents[2]
+PROTO_TIER = ("-m", "tools.analysis", "--tier", "proto",
+              "k8s_spot_rescheduler_tpu_torch")
+PROTO_TIMEOUT_S = 120.0
 
 
 def span_ms_median(traces, name: str) -> float:
@@ -47,6 +64,32 @@ def span_ms_median(traces, name: str) -> float:
         spans = trace.find(name)
         totals.append(sum(s.dur_ms for s in spans) if spans else 0.0)
     return float(np.median(totals)) if totals else 0.0
+
+
+def verify_protocol() -> tuple:
+    """Run the proto tier over this package in a fresh subprocess from
+    the checkout's root; returns (green, wall ms). A red, timed-out or
+    impossible run says why on stderr."""
+    if not (ROOT / "tools" / "analysis" / "__main__.py").is_file():
+        print(f"bench-smoke: protocol verification cannot run: {ROOT} is "
+              f"not a checkout of the repository (no tools/analysis)",
+              file=sys.stderr)
+        return False, 0.0
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, *PROTO_TIER],
+                              capture_output=True, text=True, cwd=ROOT,
+                              timeout=PROTO_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        print(f"bench-smoke: protocol verification timed out after "
+              f"{PROTO_TIMEOUT_S:.0f} s", file=sys.stderr)
+        return False, (time.perf_counter() - t0) * 1e3
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if proc.returncode != 0:
+        print(f"bench-smoke: protocol verification RED "
+              f"(rc={proc.returncode}):\n{proc.stdout[-2000:]}\n"
+              f"{proc.stderr[-2000:]}", file=sys.stderr)
+    return proc.returncode == 0, wall_ms
 
 
 def smoke_spec():
@@ -77,6 +120,8 @@ def run_smoke(args, device, metric: str, unit: str) -> tuple:
         and report.delta_pack_lanes >= 0
         and report.chunks_solved >= 0
     )
+    proto_ok, verify_protocol_ms = verify_protocol()
+    ok = ok and proto_ok
     progress(f"bench-smoke: uploads per tick {uploads} B  tick ms "
              f"{[round(t, 1) for t in tick_ms]}  chunks "
              f"{report.chunks_solved} solved / {report.chunks_skipped} "
@@ -97,6 +142,7 @@ def run_smoke(args, device, metric: str, unit: str) -> tuple:
         "pack_ms": round(pack_s * 1e3, 3),
         **{key: round(span_ms_median(traces[1:], name), 3)
            for key, name in SPAN_FIELDS},
+        "verify_protocol_ms": round(verify_protocol_ms, 1),
         "ok": ok,
     }
     return (0 if ok else 1), row

@@ -48,6 +48,13 @@ class Event:
 class FakeCluster:
     """ClusterClient + EventSink implementation over plain dicts."""
 
+    # an eviction here is an in-memory append plus a scheduled
+    # termination: the drain actuator runs a round's evictions in pod
+    # order instead of over its thread pool (actuator/drain.py), so the
+    # eviction log, the termination order and the re-placements never
+    # depend on thread scheduling
+    serial_evictions = True
+
     def __init__(
         self,
         clock: Optional[FakeClock] = None,

@@ -72,15 +72,16 @@ class RemoteCallError(Exception):
         self.retry_after = float(retry_after)
 
 
-class Endpoint:
-    """Per-endpoint breaker state (also the fleet's tenant twins',
-    ``service/twin.py``): failures at replica A must not make the agent
-    skip replica B. ``acked_fp`` is the fingerprint of the
+class _Endpoint:
+    """Per-endpoint breaker state: failures at replica A must not make
+    the agent skip replica B. ``acked_fp`` is the fingerprint of the
     last pack THIS endpoint acknowledged (full upload or applied
     delta) — the delta wire ships churn only to an endpoint whose
     acknowledged state IS the delta's base, so a failover target (or a
     repointed url) gets a full pack by construction, without waiting
-    for the server's resync demand."""
+    for the server's resync demand. The protocol model's
+    ``ENDPOINT_FIELDS`` is bound to these ``__slots__``
+    (service/protocol_model.py)."""
 
     __slots__ = ("url", "consecutive_failures", "skip_until", "acked_fp")
 
@@ -89,6 +90,11 @@ class Endpoint:
         self.consecutive_failures = 0
         self.skip_until = 0.0  # on the agent's clock (monotonic)
         self.acked_fp = ""  # last pack fingerprint this replica holds
+
+
+# public name: the fleet twin (service/twin.py) reuses the per-endpoint
+# breaker state object rather than growing a parallel one
+Endpoint = _Endpoint
 
 
 # longest HTTP status/header line the pooled reader accepts (matches

@@ -964,8 +964,10 @@ class PlannerService:
                 # the applied half of the delta accounting (the resync
                 # half fires in note_resync — one site each)
                 metrics.update_service_delta("applied")
-            req.event.set()
         t_end = time.perf_counter()
+        # the batch's log entry is written before any member is woken: a
+        # caller holding its reply finds the batch (and its launches) in
+        # the log
         self.batch_log.append({
             "popped": split["t0"],  # host clock (perf_counter)
             "queued": queued,  # requests waiting when the batch was cut
@@ -986,6 +988,8 @@ class PlannerService:
                 if LAUNCHES[k] != launches[k]
             },
         })
+        for req in batch:
+            req.event.set()
         if self._state_path() and (
             self._last_state_save is None
             or wall - self._last_state_save >= STATE_SAVE_INTERVAL_S

@@ -235,6 +235,7 @@ def test_smoke_row_on_the_cpu():
     assert row["value"] == row["upload_bytes"][-1] < row["upload_bytes"][0]
     assert row["span_solve_ms"] > 0
     assert row["span_queue_ms"] == row["span_wire_ms"] == 0.0
+    assert row["verify_protocol_ms"] > 0
 
 
 def test_span_ms_median_sums_each_trace_and_skips_missing():

@@ -576,6 +576,28 @@ def test_delta_requests_match_full_packs_through_the_device_scatter():
     assert metrics.service_snapshot()["delta_requests"].get("applied", 0) >= 3
 
 
+@pytest.mark.parametrize("horizon", [0, 2])
+def test_batch_log_entry_precedes_every_reply(horizon):
+    """A caller woken with its reply finds its batch, launches included,
+    in ``batch_log``: the entry is written before any member is woken."""
+    svc = _service(solver="torch")
+    seen = []
+
+    class Recording(threading.Event):
+        def set(self):
+            seen.append([list(b["tenants"]) for b in svc.batch_log])
+            super().set()
+
+    reqs = [svc.submit_nowait(f"t{s}", tiny_packed(seed=s),
+                              schedule_horizon=horizon) for s in range(3)]
+    for req in reqs:
+        req.event = Recording()
+    assert svc.drain_once()
+    assert all(req.event.is_set() and req.error is None for req in reqs)
+    assert seen == [[["t0", "t1", "t2"]]] * 3
+    assert svc.batch_log[-1]["horizon"] == horizon
+
+
 def test_unknown_delta_base_demands_a_resync():
     svc = _service(solver="torch")
     old, new = tiny_packed(seed=1), tiny_packed(seed=2)
