@@ -131,7 +131,13 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    ``--quality-scale``, each holding every count, drain, eviction list,
    ILP value and chain-depth counter equal to the JAX package's
    (``data/bench_seed0.json``), with B1 and B2 launched, the card named
-   in the attestation and no fallback; each row's JSON on its own line;
+   in the attestation and no fallback; each row's JSON on its own line.
+   Then ``--config 3 --repeats 3`` past a forced one-device budget
+   (``guard_drive``): the row's program keys, scale note and selection
+   equal the root ``bench.py``'s frozen row (``data/bench_seed0.json``
+   "guard"), B1 and B2 launch, B3/B4 and the repair passes do not; and
+   ``--config 3 --repeats 10000 --watchdog 5`` as a process must exit 3
+   printing one line, the watchdog's error row;
 11. the root ``bench.py``'s single-device modes in the same bench:
    ``--replay-device-only`` on the frozen harvested constrained-replay
    tick (``data/replay_harvest_seed0.npz``, best-fit and repair fire;
@@ -172,8 +178,11 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    to the JAX service's and to the one-device batch; ``python -m
    k8s_spot_rescheduler_tpu_torch`` with ``testing.SHARDED_CLI_ARGS``
    (``--solver sharded --mesh-shape 1x1`` on config 3), its drains
-   equal to the JAX CLI's; and ``bench --scale-smoke``, its numbers
-   equal to the root ``bench.py``'s. Each rung's ms a call (CUDA
+   equal to the JAX CLI's; the bench's latency rows past the cand and
+   cand-carry rungs' forced budgets (config 3) and the 2-D one's under
+   ``--solver sharded`` (config 1) over the same mesh, each against the
+   root ``bench.py``'s frozen row; and ``bench --scale-smoke``, its
+   numbers equal to the root ``bench.py``'s. Each rung's ms a call (CUDA
    events) and launches are printed. One card cannot show concurrency
    between cards nor peer copies; this phase does not claim them.
 
@@ -2407,10 +2416,11 @@ def busy_share(path: str) -> dict:
 
 def bench_drive(fk, phase: int, total: dict, kind, card, tag, *argv,
                 kernels=("B1", "B2"), planner_fallbacks=0,
-                remote_fallbacks=0, ok=True):
+                remote_fallbacks=0, ok=True, devices=None):
     """One run of the port's bench driver (``python -m
-    k8s_spot_rescheduler_tpu_torch.bench``, by its ``run``) on the card in
-    phase ``phase``, with the launch counts set to 0 just before and read
+    k8s_spot_rescheduler_tpu_torch.bench``, by its ``run``, over
+    ``devices``: every visible card when None) on the card in phase
+    ``phase``, with the launch counts set to 0 just before and read
     just after: each of ``kernels`` must have launched, the row's
     launches must equal the counters, its attestation must name the card
     with the device not sick at the end, and its planner and
@@ -2422,7 +2432,7 @@ def bench_drive(fk, phase: int, total: dict, kind, card, tag, *argv,
 
     fk.reset_launch_counts()
     t0 = time.perf_counter()
-    rc, row = bench.run(["--device", "cuda", *argv])
+    rc, row = bench.run(["--device", "cuda", *argv], devices=devices)
     wall = time.perf_counter() - t0
     launches = dict(fk.LAUNCHES)
     print(json.dumps(bench.drop_non_finite(row)), flush=True)
@@ -2449,6 +2459,116 @@ def bench_drive(fk, phase: int, total: dict, kind, card, tag, *argv,
     for k in total:
         total[k] += launches[k]
     return rc, row, wall, launches
+
+
+def guard_drive(fk, phase: int, total: dict, kind, card, tag, devices,
+                kernels=("B1", "B2"), absent=()):
+    """The bench's latency mode past one device's memory: the frozen case
+    ``tag`` of ``data/bench_seed0.json`` "guard" (the root ``bench.py``'s
+    ``_run_latency`` on the JAX package under the same budget: the keys
+    that name the program it ran, its scale note and its selection) run
+    by ``bench_drive`` over ``devices`` with ``--repeats 3``, its budget
+    forced on ``solver/memory.device_hbm_budget`` for the run. The row's
+    keys, scale note and selection must equal the frozen ones, each of
+    ``kernels`` must have launched and none of ``absent``. The repair
+    passes of the run (``solver/repair.plan_repair`` and
+    ``plan_repair_chunked`` calls) are counted. Returns (row, launches,
+    wall seconds, repair passes)."""
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.solver import memory, repair
+
+    case = testing.load_bench()["guard"][tag]
+    check(case["devices"] == len(devices),
+          f"[{phase}] guard {tag}: frozen over {case['devices']} devices")
+    argv = ["--config", str(case["config"]), "--repeats", "3"]
+    if case["solver"] != "torch":
+        argv += ["--solver", case["solver"]]
+    passes = [0]
+    saved = (memory.device_hbm_budget, repair.plan_repair,
+             repair.plan_repair_chunked)
+
+    def counted(fn):
+        def wrapped(*args, **kwargs):
+            passes[0] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    memory.device_hbm_budget = lambda device=None: case["budget"]
+    repair.plan_repair = counted(saved[1])
+    repair.plan_repair_chunked = counted(saved[2])
+    try:
+        _, row, wall, launches = bench_drive(
+            fk, phase, total, kind, card, f"--config {case['config']} "
+            f"(guard {tag})", *argv, kernels=kernels, devices=devices)
+    finally:
+        (memory.device_hbm_budget, repair.plan_repair,
+         repair.plan_repair_chunked) = saved
+    keys = {k: row.get(k) for k in testing.GUARD_KEYS}
+    check(keys == case["keys"],
+          f"[{phase}] guard {tag}: keys {keys} != the JAX package's "
+          f"{case['keys']}")
+    note = case["scale_note"].replace("single-chip", "single-device")
+    check(row.get("scale_note") == note,
+          f"[{phase}] guard {tag}: scale_note {row.get('scale_note')!r} != "
+          f"{note!r}")
+    check(row["selection"] == case["selection"],
+          f"[{phase}] guard {tag}: selection {row['selection'][:3]} != the "
+          f"JAX package's {case['selection'][:3]}")
+    check(not any(launches[k] for k in absent),
+          f"[{phase}] guard {tag}: {absent} launched: {launches}")
+    return row, launches, wall, passes[0]
+
+
+def guard_line(row, launches, wall, kind, card) -> str:
+    return (f"tier {row['tier']}, solver {row['solver']}, carry_chunks "
+            f"{row['carry_chunks']}, carry_bytes {row['carry_bytes']}, "
+            f"repair_unavailable {row['repair_unavailable']}; selection "
+            f"idx={row['first_candidate']} n_feasible={row['n_feasible']}; "
+            f"all == the JAX package's (data/bench_seed0.json \"guard\"); "
+            f"solve+fetch {row['value']:.3f} ms (median of 3), device-only "
+            f"{row['device_only']['device_only_ms']} ms; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; {wall:.1f} s, "
+            f"on {kind} [{card}]")
+
+
+def watchdog_check(here) -> str:
+    """``python -m k8s_spot_rescheduler_tpu_torch.bench --config 3
+    --repeats 10000 --watchdog 5`` on the card must exit 3 printing one
+    line, the error row that names the watchdog. The repeats hold the run
+    past 5 s however fast the host: a warm config-3 run takes ~4 s, its
+    10,000 solves alone ~5.6 s."""
+    argv = [sys.executable, "-m", "k8s_spot_rescheduler_tpu_torch.bench",
+            "--config", "3", "--repeats", "10000", "--watchdog", "5"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=here, env=dict(os.environ,
+                                                   PYTHONPATH=here),
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    want = {"metric": "drain_plan_ms_config3_50kpods_5knodes",
+            "value": None, "unit": "ms", "vs_baseline": None,
+            "error": "watchdog: bench exceeded 5s budget"}
+    check(proc.returncode == 3 and len(lines) == 1
+          and json.loads(lines[0]) == want,
+          f"[10] bench --watchdog 5: exit {proc.returncode}, stdout "
+          f"{proc.stdout[-600:]!r}, stderr {proc.stderr[-600:]!r}")
+    return (f"[10] python -m k8s_spot_rescheduler_tpu_torch.bench "
+            f"{' '.join(argv[3:])}: exit 3 after {wall:.1f} s with one line, "
+            f"the watchdog's error row {lines[0]}")
+
+
+def mesh_guard_phase(fk, total: dict, kind, card, devices) -> None:
+    """Phase 13's bench rows past the budget: the latency mode at the
+    cand, cand-carry and 2-D (``--solver sharded``) rungs' forced budgets
+    over ``devices``, each held against the JAX package's frozen row."""
+    for tag, kernels in (("cand", ("B1", "B2")), ("cand-carry", ("B3", "B4")),
+                         ("2d", ())):
+        row, launches, wall, _ = guard_drive(
+            fk, 13, total, kind, card, tag, devices, kernels=kernels,
+            absent=tuple(fk.LAUNCHES) if tag == "2d" else ())
+        log(f"[13] bench {row['metric']} past rung {tag}'s forced budget "
+            f"over {len(devices)} x cuda:0: "
+            + guard_line(row, launches, wall, kind, card))
 
 
 def bench_phase(np, torch, fk, kind, card, here):
@@ -2514,6 +2634,17 @@ def bench_phase(np, torch, fk, kind, card, here):
         f"window (10 solve+fetch calls): busy share "
         f"{share['share']:.4f}; trace "
         f"{os.path.relpath(row['trace_file'], here)}, on {kind} [{card}]")
+
+    # ---- past one device's memory, and the watchdog -----------------
+    row, launches, wall, passes = guard_drive(
+        fk, 10, total, kind, card, "one-device", [torch.device("cuda", 0)],
+        absent=("B3", "B4"))
+    check(passes == 0, f"[10] guard one-device: {passes} repair passes")
+    log(f"[10] bench --config 3 past a forced one-device budget "
+        f"({row['scale_note']}): first-fit ∪ best-fit without repair, "
+        f"B1 and B2 launched, no B3/B4, no repair pass; "
+        + guard_line(row, launches, wall, kind, card))
+    log(watchdog_check(here))
 
     # ---- the replays ---------------------------------------------------
     for tag, argv, want in (
@@ -3196,6 +3327,9 @@ def mesh_phase(np, torch, fk, kind, card, here, fleet):
         f"{' '.join(testing.SHARDED_CLI_ARGS)}: exit 0 in {cli_s:.1f} s, "
         f"drained {', '.join(drained)} == the JAX package's CLI with the "
         f"same flags, planner_fallback_total=0, on {kind} [{card}]")
+
+    # ---- the bench's latency rows past the budget -------------------------
+    mesh_guard_phase(fk, total, kind, card, devices)
 
     # ---- --scale-smoke ----------------------------------------------------
     frozen = json.loads(str(ans["scale_smoke"]))

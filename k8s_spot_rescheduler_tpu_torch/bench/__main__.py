@@ -12,8 +12,21 @@ packages compare:
   (pack + upload + solve + fetch), the steady incremental tick of
   ``TorchSolverPlanner.plan`` through the resident cache, and the
   device-only estimate of ``bench/protocol``. Metric
-  ``drain_plan_ms_config3_50kpods_5knodes`` and its siblings. The
-  planner has one device here, so the memory ladder answers "single".
+  ``drain_plan_ms_config3_50kpods_5knodes`` and its siblings.
+  ``--solver sharded`` runs the 2-D mesh solve under the union instead.
+  The memory guard (``latency_program``, the root ``bench.py``'s): when
+  the union's estimate passes one device's budget
+  (``solver/memory.device_hbm_budget``), the run takes the dispatch
+  ladder's verdict over every visible card (``run``'s ``devices``): a
+  cand rung's union with repair live, or the 2-D solve without repair
+  (also under ``--solver sharded``); on one device, first-fit ∪
+  best-fit without repair, and an out-of-memory error on its first call
+  is re-raised with the estimate and the budget. The row's ``tier``,
+  ``carry_chunks``, ``carry_bytes`` and ``repair_unavailable`` name the
+  program that ran; past the budget it adds ``scale_note``, ``solver``,
+  ``est_bytes`` (the program's estimate a device) and, on the card,
+  ``peak_memory_bytes`` (``torch.cuda.max_memory_allocated`` over the
+  first call, the resident pack included).
 - ``--config 5 [--constrained] --events N``: the spot-interruption
   replay (``bench/replay``). Metrics ``replay_replan_ms_p50_1k_events``
   and ``replay_constrained_replan_ms_p50_1k_events``.
@@ -77,24 +90,37 @@ packages compare:
   ``fleet_twin_capacity_tenants_per_device`` and
   ``storm_smoke_resync_converge_ticks``.
 
-Every mode plans with ``solver="torch"`` on ``--device`` (``cuda`` by
-default), but for the host half of ``--replay-device-only``, which
-replays on the numpy oracle as the reference does. There is no
-fallback: without a card and without ``--device cpu`` the bench exits
-1 with the error ``device.resolve_device`` raises and prints no row; a
-fault of the card's kernels ends the run.
-Progress goes to stderr, then ONE JSON line to stdout. Each row carries
-``backend_attestation`` (the device that solved, the card's name and
-``nvidia-smi`` name and power limit, ``device_sick``, and the planner
-and remote-planner fallbacks of this run) and ``launches``, the kernel
-launches of this run (``ops/ffd_kernels.LAUNCHES``). ``--trace-dir DIR``
-wraps the timed region in ``utils/tracing.device_trace`` and names the
-Chrome trace in the row (``trace_file``).
+Every mode plans with ``--solver`` (``torch``, the kernels, by default)
+on ``--device`` (``cuda`` by default), but for the host half of
+``--replay-device-only``, which replays on the numpy oracle as the
+reference does. ``--solver`` picks the latency and quality modes'
+solver: ``torch``, ``sharded`` (the 2-D mesh solve), or ``numpy`` (the
+host oracle), which only the three quality modes take. The root
+``bench.py``'s ``--quality`` defaults to the numpy oracle; the port's
+keeps ``torch``, since its quality rows are held on the card, and
+``--solver numpy`` gives the root's default row. There is no fallback:
+without a card and without ``--device cpu`` the bench exits 1 with the
+error ``device.resolve_device`` raises and prints no row; a fault of
+the card's kernels ends the run.
+Progress goes to stderr, then at most ONE JSON line to stdout (``emit``
+prints once a process). Each row carries ``backend_attestation`` (the
+device that solved, the card's name and ``nvidia-smi`` name and power
+limit, ``device_sick``, and the planner and remote-planner fallbacks of
+this run) and ``launches``, the kernel launches of this run
+(``ops/ffd_kernels.LAUNCHES``). ``--trace-dir DIR`` wraps the timed
+region in ``utils/tracing.device_trace`` and names the Chrome trace in
+the row (``trace_file``). A mode that raises prints the error row
+(``value`` null, ``error`` the traceback's last 600 characters) and
+exits 1. ``--watchdog SECONDS`` (1500 by default, 0 = off) bounds the
+whole run: past it the error row names the watchdog, without the
+attestation (a hung card call must not block the line), and the
+process exits 3.
 
 Run e.g.::
 
     python -m k8s_spot_rescheduler_tpu_torch.bench --config 3
     python -m k8s_spot_rescheduler_tpu_torch.bench --device cpu --config 1
+    python -m k8s_spot_rescheduler_tpu_torch.bench --device cpu --quality --solver numpy
     python -m k8s_spot_rescheduler_tpu_torch.bench --device cpu --config 5 --events 20
     python -m k8s_spot_rescheduler_tpu_torch.bench --device cpu --quality
     python -m k8s_spot_rescheduler_tpu_torch.bench --carry-wall --carry-chunks 4
@@ -105,17 +131,23 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import hashlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import traceback
+from typing import NamedTuple, Optional
 
 import numpy as np
 
 TARGET_MS = 200.0  # BASELINE.json's drain-plan target
+QUALITY_MODES = ("quality", "quality_boundary", "quality_scale")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,6 +158,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="where the planner runs: cuda (default; fails "
                          "without a card) or cpu")
+    ap.add_argument("--solver", default="torch",
+                    choices=("torch", "sharded", "numpy"),
+                    help="the latency and quality modes' solver: torch "
+                         "(the kernels, default), sharded (the 2-D mesh "
+                         "solve) or numpy (the host oracle; quality modes "
+                         "only)")
+    ap.add_argument("--watchdog", type=float, default=1500.0,
+                    help="hard wall-clock budget in seconds: past it the "
+                         "error row and exit 3; 0 disables")
     ap.add_argument("--quality", action="store_true",
                     help="nodes freed against the ILP oracle over the "
                          "quality configs")
@@ -219,6 +260,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "twin charges their measured per-bucket solve "
                          "seconds instead of the modelled cost")
     return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """``build_parser().parse_args(argv)``, with the root ``bench.py``'s
+    rule that the numpy oracle is no device solver: ``--solver numpy``
+    outside the quality modes is an argument error (exit 2)."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.solver == "numpy" and not any(
+            getattr(args, mode) for mode in QUALITY_MODES):
+        ap.error("--solver numpy is the host oracle; use it with --quality, "
+                 "--quality-boundary or --quality-scale (the other modes "
+                 "measure the device solvers)")
+    return args
 
 
 def metric_for(args) -> tuple:
@@ -337,18 +392,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
-def backend_attestation(device, base: dict) -> dict:
+def backend_attestation(device, base: dict, solver: str = "torch") -> dict:
     """Which device solved, and whether anything in this run left it:
     the card's name (``torch.cuda.get_device_name``) and ``nvidia-smi``
     name and power limit, the service watchdog's sick gauge, and the
     planner and remote-planner fallbacks since ``base``
-    (``_counters()`` at the run's start)."""
+    (``_counters()`` at the run's start). Under ``--solver numpy`` the
+    host oracle solved, whatever ``device`` is."""
     import torch
 
     from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
 
     out: dict = {}
-    if device.type == "cuda":
+    if solver == "numpy":
+        out["solve_backend"] = "numpy"
+        out["n_devices"] = 0
+    elif device.type == "cuda":
         out["solve_backend"] = f"cuda/{torch.cuda.get_device_name(device)}"
         out["n_devices"] = torch.cuda.device_count()
     else:
@@ -383,8 +442,38 @@ def drop_non_finite(obj):
     return obj
 
 
+_emit_once = threading.Lock()
+
+
 def emit(row: dict) -> None:
+    """Print THE one JSON line, at most once a process: the lock is
+    taken and never released, so whichever thread (the main one or the
+    watchdog's) takes it first is the only one that prints."""
+    if not _emit_once.acquire(blocking=False):
+        return
     print(json.dumps(drop_non_finite(row)), flush=True)
+
+
+def error_row(metric: str, unit: str, error: str) -> dict:
+    return {"metric": metric, "value": None, "unit": unit,
+            "vs_baseline": None, "error": error[-600:]}
+
+
+def start_watchdog(seconds: float, metric: str, unit: str) -> threading.Timer:
+    """Past ``seconds``, print the error row naming the watchdog and exit
+    3: a hung card call cannot be interrupted any other way. The row has
+    no attestation, whose card queries could hang as well."""
+
+    def fire() -> None:
+        emit(error_row(metric, unit,
+                       f"watchdog: bench exceeded {seconds:.0f}s budget"))
+        sys.stdout.flush()
+        os._exit(3)
+
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    return timer
 
 
 def progress(msg: str) -> None:
@@ -457,12 +546,14 @@ def _synced(device):
 
 
 def run_incremental_ticks(client, store, pdbs, spec, device, n_ticks: int,
-                          churn: int = 5, staged_chunk_lanes=None):
+                          churn: int = 5, staged_chunk_lanes=None,
+                          devices=None):
     """The production per-tick pipeline: ``TorchSolverPlanner.plan`` on
     the mirror, each tick's pack diffed into the resident cache, the
     staged early-exit solve (``staged_chunk_lanes`` lanes a chunk, the
     config's default when None), one small fetch; ``churn`` pod removals
-    between ticks. Each tick runs under its own trace
+    between ticks. The planner's ladder spans ``devices`` (every visible
+    card when None). Each tick runs under its own trace
     (``utils/tracing.tick_trace``), as the control loop runs it. Returns
     (tick ms, reports, mirror-sync ms, traces); tick 0 is the cold full
     upload."""
@@ -475,7 +566,7 @@ def run_incremental_ticks(client, store, pdbs, spec, device, n_ticks: int,
     cfg = ReschedulerConfig(resources=spec.resources)
     if staged_chunk_lanes is not None:
         cfg = dataclasses.replace(cfg, staged_chunk_lanes=staged_chunk_lanes)
-    planner = TorchSolverPlanner(cfg, device=device)
+    planner = TorchSolverPlanner(cfg, device=device, devices=devices)
     uids = iter(list(client.pods))
     tick_ms, reports, sync_ms, traces = [], [], [], []
     for i in range(n_ticks):
@@ -494,14 +585,120 @@ def run_incremental_ticks(client, store, pdbs, spec, device, n_ticks: int,
     return tick_ms, reports, sync_ms, traces
 
 
-def run_latency(args, device, metric: str, unit: str) -> tuple:
+class LatencyProgram(NamedTuple):
+    """What the latency mode runs on a pack (``latency_program``): the
+    union ``union``; ``tier``, the TierDecision of that program (the
+    row's ``tier``/``carry_*``/``repair_unavailable``); past one
+    device's budget ``scale_note`` and ``solver`` (both None inside
+    it); ``one_device``, past the budget with one device, where an
+    out-of-memory error is annotated."""
+
+    union: object
+    tier: object
+    scale_note: Optional[str]
+    solver: Optional[str]
+    one_device: bool
+
+
+def latency_program(packed, device, devices, solver: str) -> LatencyProgram:
+    """The root ``bench.py``'s memory guard on ``packed`` over
+    ``devices``: inside one device's budget (``solver_memory.
+    device_hbm_budget(device)``) the union with repair (the 2-D solve's
+    under ``solver="sharded"``); past it with more than one device, the
+    dispatch ladder's (``solver_memory.pick_tier``) cand rung, repair
+    live, as ``TorchSolverPlanner._maybe_shard`` dispatches it, or else
+    the 2-D solve under first-fit ∪ best-fit; past it on one device,
+    first-fit ∪ best-fit without repair (on the 2-D solve under
+    ``"sharded"``)."""
+    from k8s_spot_rescheduler_tpu_torch.parallel.mesh import make_cand_mesh
+    from k8s_spot_rescheduler_tpu_torch.parallel.sharded_ffd import (
+        make_sharded_planner,
+        plan_union_cand_sharded,
+    )
+    from k8s_spot_rescheduler_tpu_torch.solver import carry as solver_carry
+    from k8s_spot_rescheduler_tpu_torch.solver import memory as solver_memory
+    from k8s_spot_rescheduler_tpu_torch.solver.fallback import (
+        union_program,
+        with_best_fit_fallback,
+        with_repair,
+    )
+    from k8s_spot_rescheduler_tpu_torch.solver.repair import DEFAULT_ROUNDS
+
+    shapes = solver_memory.packed_shapes(packed)
+    est = solver_memory.estimate_union_hbm_bytes(*shapes)
+    budget = solver_memory.device_hbm_budget(device)
+    n_devices = len(devices)
+    layout = solver_carry.carry_layout(packed)
+    tier = solver_memory.pick_tier(
+        *shapes,
+        n_devices=n_devices,
+        budget_bytes=budget,
+        wants_repair=True,
+        carry_plane_bytes=solver_carry.plane_bytes(
+            layout, shapes[3], shapes[5]
+        ),
+    )
+
+    def two_d():
+        return make_sharded_planner(None, devices)
+
+    if tier.kind == "single" and est <= budget:
+        if solver == "sharded":
+            return LatencyProgram(with_repair(two_d(), DEFAULT_ROUNDS), tier,
+                                  None, None, False)
+        return LatencyProgram(union_program(DEFAULT_ROUNDS, True,
+                                            use_kernel=True),
+                              tier, None, None, False)
+    note = (f"problem est {est / 1e9:.1f} GB exceeds single-device budget "
+            f"{budget / 1e9:.1f} GB")
+    if n_devices > 1 and solver != "sharded" and tier.kind in (
+            "cand", "cand-chunked", "cand-carry"):
+        union = functools.partial(
+            plan_union_cand_sharded,
+            make_cand_mesh(devices),
+            rounds=DEFAULT_ROUNDS,
+            repair_spot_chunks=(
+                tier.repair_chunks if tier.carry_chunks == 0 else 1),
+            carry_chunks=tier.carry_chunks,
+            carry_layout=layout,
+            use_kernel=True,
+        )
+        note += (f"; executing the dispatch ladder's verdict: {tier.kind} "
+                 f"(repair_chunks {tier.repair_chunks}, carry_chunks "
+                 f"{tier.carry_chunks}, est {tier.est_bytes / 1e9:.1f} "
+                 f"GB/device over {n_devices} devices; repair intact)")
+        return LatencyProgram(union, tier, note, "torch", False)
+    if n_devices > 1 and solver != "sharded":
+        solver = "sharded"
+        note += (f"; dispatch ladder verdict: 2-D mesh-sharded over "
+                 f"{n_devices} devices (repair unavailable at this scale)")
+    # no repair phase runs from here on: the row's keys say so even where
+    # the ladder would have kept a cand rung
+    sharded = solver == "sharded"
+    lane = tier.lane_block if sharded else shapes[0]
+    executed = solver_memory.TierDecision(
+        "2d" if sharded else "single", 0, 0,
+        solver_memory.estimate_union_hbm_bytes(
+            lane, *shapes[1:], repair_spot_chunks=0),
+        solver_memory.estimate_union_hbm_breakdown(
+            lane, *shapes[1:], repair_spot_chunks=0)["carries"],
+        lane, True,
+    )
+    union = (with_best_fit_fallback(two_d()) if sharded
+             else union_program(0, True, use_kernel=True))
+    return LatencyProgram(union, executed, note, solver, n_devices <= 1)
+
+
+def run_latency(args, device, metric: str, unit: str, devices=None) -> tuple:
+    """The latency mode (configs 1-4) over ``devices`` (every visible card
+    when None)."""
+    import torch
+
     from k8s_spot_rescheduler_tpu_torch.bench import protocol
     from k8s_spot_rescheduler_tpu_torch.io.synthetic import CONFIGS
     from k8s_spot_rescheduler_tpu_torch.models.tensors import to_device
-    from k8s_spot_rescheduler_tpu_torch.solver import carry as solver_carry
+    from k8s_spot_rescheduler_tpu_torch.parallel.mesh import default_devices
     from k8s_spot_rescheduler_tpu_torch.solver import memory as solver_memory
-    from k8s_spot_rescheduler_tpu_torch.solver.fallback import union_program
-    from k8s_spot_rescheduler_tpu_torch.solver.repair import DEFAULT_ROUNDS
     from k8s_spot_rescheduler_tpu_torch.solver.select import (
         decode_selection,
         make_fused_planner,
@@ -512,31 +709,35 @@ def run_latency(args, device, metric: str, unit: str) -> tuple:
     packed, pack_s, gen_s, client, store, pdbs = build_problem(
         spec, args.seed, pack_repeats=5
     )
-    # the dispatch ladder over the bench's one device: always "single"
-    # (the mesh tiers: chip smoke phase 13, bench --scale-smoke)
+    devices = list(devices) if devices is not None else default_devices(device)
     shapes = solver_memory.packed_shapes(packed)
-    layout = solver_carry.carry_layout(packed)
-    tier = solver_memory.pick_tier(
-        *shapes,
-        n_devices=1,
-        budget_bytes=solver_memory.device_hbm_budget(device),
-        wants_repair=True,
-        carry_plane_bytes=solver_carry.plane_bytes(
-            layout, shapes[3], shapes[5]
-        ),
-    )
-    fused = make_fused_planner(
-        union_program(DEFAULT_ROUNDS, True, use_kernel=True)
-    )
+    program = latency_program(packed, device, devices, args.solver)
+    tier = program.tier
+    if program.scale_note:
+        progress(f"memory guard: {program.scale_note}")
+    fused = make_fused_planner(program.union)
 
     _synced(device)
     t0 = time.perf_counter()
     device_packed = to_device(packed, device)
     _synced(device)
     upload_s = time.perf_counter() - t0
+    # past the budget on the card: the first call's peak device memory,
+    # the resident pack included, beside the estimate
+    track_peak = program.scale_note is not None and device.type == "cuda"
+    if track_peak:
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    sel = decode_selection(fused(device_packed))
+    try:
+        sel = decode_selection(fused(device_packed))
+    except torch.OutOfMemoryError as err:
+        if program.one_device:
+            raise RuntimeError(
+                f"{str(err)[-250:]} | {program.scale_note}; one device, so "
+                f"the mesh tiers cannot engage") from err
+        raise
     first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if track_peak else None
 
     times = []
     with tracing.device_trace() as trace:
@@ -555,9 +756,12 @@ def run_latency(args, device, metric: str, unit: str) -> tuple:
     protocol_rec = protocol.run_protocol(fused, device_packed)
     tick_ms, tick_reports, sync_ms, _ = run_incremental_ticks(
         client, store, pdbs, spec, device,
-        n_ticks=max(4, min(8, args.repeats)),
+        n_ticks=max(4, min(8, args.repeats)), devices=devices,
     )
     tick_report = tick_reports[-1]
+    # a tick the planner's ladder rerouted off the resident cache has no
+    # upload or chunk accounting (-1): those keys are left out
+    incremental = tick_report.upload_bytes >= 0
     steady_ms = float(np.median(tick_ms[1:]))
     value_ms = float(np.median(times) * 1e3)
     e2e_ms = float(np.median(e2e) * 1e3)
@@ -568,8 +772,9 @@ def run_latency(args, device, metric: str, unit: str) -> tuple:
         f"max {max(times) * 1e3:.3f})  with-upload {e2e_ms:.3f} ms  "
         f"full tick (pack+upload+solve+fetch) {pack_s * 1e3 + e2e_ms:.1f} ms  "
         f"steady incremental tick {steady_ms:.3f} ms "
-        f"(delta {tick_report.upload_bytes} B)  device-only "
-        f"{protocol_rec['device_only_ms']} ms/solve  feasible "
+        + (f"(delta {tick_report.upload_bytes} B)  " if incremental
+           else "(delta n/a: the ticks were rerouted)  ")
+        + f"device-only {protocol_rec['device_only_ms']} ms/solve  feasible "
         f"{sel.n_feasible}/{n_cand} candidates, first={sel.index}  "
         f"tier {tier.kind}"
     )
@@ -588,10 +793,15 @@ def run_latency(args, device, metric: str, unit: str) -> tuple:
         "full_tick_ms": round(pack_s * 1e3 + e2e_ms, 3),
         "steady_tick_ms": round(steady_ms, 3),
         "sync_ms": round(float(np.median(sync_ms)), 3),
-        "delta_upload_bytes": int(tick_report.upload_bytes),
-        "delta_pack_lanes": int(tick_report.delta_pack_lanes),
-        "chunks_solved": int(tick_report.chunks_solved),
-        "chunks_skipped": int(tick_report.chunks_skipped),
+    }
+    if incremental:
+        row["delta_upload_bytes"] = int(tick_report.upload_bytes)
+        row["delta_pack_lanes"] = int(tick_report.delta_pack_lanes)
+        row["chunks_solved"] = int(tick_report.chunks_solved)
+        row["chunks_skipped"] = int(tick_report.chunks_skipped)
+    if tick_report.repair_chunks > 1:
+        row["repair_chunks"] = int(tick_report.repair_chunks)
+    row.update({
         "device_only": protocol_rec,
         "tier": tier.kind,
         "carry_chunks": int(tier.carry_chunks),
@@ -603,7 +813,13 @@ def run_latency(args, device, metric: str, unit: str) -> tuple:
         "selection": [int(sel.index), int(sel.found), int(sel.n_feasible),
                       *(int(v) for v in sel.row)],
         "shape": dict(zip("CKSRWA", (int(v) for v in shapes))),
-    }
+    })
+    if program.scale_note is not None:
+        row["scale_note"] = program.scale_note
+        row["solver"] = program.solver
+        row["est_bytes"] = int(tier.est_bytes)
+    if peak is not None:
+        row["peak_memory_bytes"] = int(peak)
     if trace.path:
         row["trace_file"] = trace.path
     return 0, row
@@ -646,11 +862,13 @@ def run_replay_bench(args, device, metric: str, unit: str) -> tuple:
 # --- quality -----------------------------------------------------------------
 
 
-def quality_row(spec, seed: int, device, variants=("ffd", "shipped")) -> dict:
+def quality_row(spec, seed: int, device, variants=("ffd", "shipped"),
+                solver: str = "torch") -> dict:
     """One config at one seed: the ILP of its fresh pack and each
-    variant drained to exhaustion from a fresh cluster on ``device``
-    (``ffd``: first-fit alone; ``shipped``: first-fit ∪ best-fit ∪
-    repair), with the count and digest of each run's evictions."""
+    variant drained to exhaustion from a fresh cluster by ``solver`` on
+    ``device`` (``ffd``: first-fit alone; ``shipped``: first-fit ∪
+    best-fit ∪ repair), with the count and digest of each run's
+    evictions."""
     from k8s_spot_rescheduler_tpu_torch.bench.quality import (
         drain_to_exhaustion,
         ilp_max_drains,
@@ -671,7 +889,7 @@ def quality_row(spec, seed: int, device, variants=("ffd", "shipped")) -> dict:
         t0 = time.perf_counter()
         row[variant] = drain_to_exhaustion(
             client,
-            ReschedulerConfig(solver="torch", resources=spec.resources,
+            ReschedulerConfig(solver=solver, resources=spec.resources,
                               **knobs[variant]),
             device=device,
         )
@@ -690,7 +908,7 @@ def run_quality(args, device, metric: str, unit: str) -> tuple:
     rows, worst = {}, 1.0
     for name, spec in QUALITY_CONFIGS.items():
         for s in range(args.seed, args.seed + max(1, args.sweep)):
-            row = quality_row(spec, s, device)
+            row = quality_row(spec, s, device, solver=args.solver)
             worst = min(worst, row["shipped_ratio"])
             rows[f"{name}/{s}"] = row
             progress(
@@ -716,7 +934,8 @@ def run_quality_boundary(args, device, metric: str, unit: str) -> tuple:
     rows, worst = {}, 1.0
     for name, spec in BOUNDARY_CONFIGS.items():
         for s in range(args.seed, args.seed + max(1, args.sweep)):
-            row = quality_row(spec, s, device, variants=("shipped",))
+            row = quality_row(spec, s, device, variants=("shipped",),
+                              solver=args.solver)
             worst = min(worst, row["shipped_ratio"])
             rows[f"{name}/{s}"] = row
             progress(
@@ -765,7 +984,7 @@ def run_quality_scale(args, device, metric: str, unit: str) -> tuple:
     )
     horizon = max(0, int(args.schedule_horizon))
     cfg = ReschedulerConfig(
-        solver="torch",
+        solver=args.solver,
         resources=spec.resources,
         max_drains_per_tick=256,
         plan_schedule_enabled=horizon > 0,
@@ -873,15 +1092,19 @@ def run_chain_depth(args, device, metric: str, unit: str) -> tuple:
 # --- entry ----------------------------------------------------------------------
 
 
-def run(argv=None) -> tuple:
+def run(argv=None, devices=None) -> tuple:
     """Parse ``argv``, run the mode on its device and return (exit code,
-    row) without printing the row. Raises RuntimeError (from
-    ``device.resolve_device``) for ``cuda`` without a card."""
+    row) without printing the row. ``devices`` (every visible card when
+    None) is what the latency mode's memory guard and its planner lay
+    their meshes over: the tests pass ``[cpu] * n``, the chip smoke
+    ``[cuda:0] * 4``. Raises RuntimeError (from
+    ``device.resolve_device``) for ``cuda`` without a card; no watchdog
+    runs here (``main`` starts it)."""
     from k8s_spot_rescheduler_tpu_torch.device import resolve_device
     from k8s_spot_rescheduler_tpu_torch.ops import ffd_kernels
     from k8s_spot_rescheduler_tpu_torch.utils import tracing
 
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     device = resolve_device(args.device)
     metric, unit = metric_for(args)
     base = _counters()
@@ -955,7 +1178,7 @@ def run(argv=None) -> tuple:
         elif args.config == 5:
             mode = run_replay_bench
         else:
-            mode = run_latency
+            mode = functools.partial(run_latency, devices=devices)
         t0 = time.perf_counter()
         rc, row = mode(args, device, metric, unit)
         # the fleet twin rows keep their own (the fleet loop's) wall
@@ -966,23 +1189,41 @@ def run(argv=None) -> tuple:
     row["launches"] = {
         k: v - launches0.get(k, 0) for k, v in ffd_kernels.LAUNCHES.items()
     }
-    row["backend_attestation"] = backend_attestation(device, base)
+    row["backend_attestation"] = backend_attestation(device, base,
+                                                     args.solver)
     return rc, row
 
 
 def main(argv=None) -> int:
+    """``run`` under the watchdog, printing its row: exit 1 and no row
+    without the device; exit 1 and the error row when the mode raises;
+    exit 3 and the watchdog's row past ``--watchdog`` seconds."""
     from k8s_spot_rescheduler_tpu_torch.device import resolve_device
 
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     try:
-        resolve_device(args.device)
+        device = resolve_device(args.device)
         if args.twin_calibration:
             # a calibrated fleet run without a table fails before it runs
             load_twin_calibration(args.twin_calibration)
     except (RuntimeError, ValueError, OSError) as err:
         print(f"Error: {err}", file=sys.stderr)
         return 1
-    rc, row = run(argv)
+    metric, unit = metric_for(args)
+    watchdog = (start_watchdog(args.watchdog, metric, unit)
+                if args.watchdog > 0 else None)
+    base = _counters()
+    try:
+        rc, row = run(argv)
+    except Exception:  # noqa: BLE001 - every failure still prints its row
+        rc, row = 1, error_row(metric, unit, traceback.format_exc())
+        try:
+            row["backend_attestation"] = backend_attestation(
+                device, base, args.solver)
+        except Exception:  # noqa: BLE001 - the row prints without it
+            pass
+    if watchdog is not None:  # the run ended: its exit code stands
+        watchdog.cancel()
     emit(row)
     return rc
 

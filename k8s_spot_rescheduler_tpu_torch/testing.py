@@ -427,6 +427,24 @@ BENCH_SOAK_TICKS = 300
 BENCH_SERVE_TENANTS = 4
 BENCH_SERVE_REUSE = (100, 25)
 BENCH_FLEET_AGENTS = 4
+# the latency mode's memory guard, frozen into the same file under
+# "guard" from the root bench.py's ``_run_latency``: (tag, config,
+# devices, budget, solver), the budget in bytes or the rung a budget is
+# found for on the bench's pack (``tests/torch_port_fixtures.
+# rung_budget``); one device past the budget (chip smoke phase 10) and
+# the cand, cand-carry and 2-D rungs over 4 devices (phase 13). The 2-D
+# row is config 1's: the 2-D solve is a host loop of torch ops a slot and
+# shard, ~0.2 s a call at config 3 on the card, and the row's device-only
+# chain makes 255 calls
+BENCH_GUARD_CASES = (
+    ("one-device", 3, 1, 600_000_000, "torch"),
+    ("cand", 3, SHARDED_DEVICES, "cand", "torch"),
+    ("cand-carry", 3, SHARDED_DEVICES, "cand-carry", "torch"),
+    ("2d", 1, SHARDED_DEVICES, "2d", "sharded"),
+)
+# the keys of a latency row that name the program it ran
+GUARD_KEYS = ("tier", "carry_chunks", "carry_bytes", "repair_unavailable",
+              "solver")
 
 
 def load_bench(path: str | None = None) -> dict:

@@ -345,6 +345,10 @@ METRIC_FLAGS = (
     ["--serve-smoke"], ["--serve-smoke", "--tenants", "6"], ["--sched-smoke"],
     ["--fleet-chaos"], ["--fleet-twin-smoke"], ["--fleet-twin"],
     ["--storm-smoke"], ["--fleet-twin-smoke", "--twin-calibration", "x"],
+    ["--solver", "sharded"], ["--config", "2", "--solver", "sharded"],
+    ["--quality", "--solver", "numpy"],
+    ["--quality-boundary", "--solver", "numpy"],
+    ["--quality-scale", "--solver", "numpy"], ["--watchdog", "0"],
 )
 ROOT_FLAGS = ("chaos", "watch_soak", "smoke", "scale_smoke", "serve_smoke",
               "sched_smoke", "fleet_chaos", "fleet_twin_smoke", "fleet_twin",

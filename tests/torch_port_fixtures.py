@@ -70,10 +70,15 @@ chunks and at the ladder's count, ``--smoke``'s ticks and
 bytes and solo selections, ``sched_smoke``'s stats and schedule cut,
 ``fleet_chaos_smoke``'s counts and flight deltas, and
 ``fleet_twin.induce_shed_edges``'s per-reason deltas (no wall time);
+and the latency mode's memory guard: the root ``bench.py``'s
+``_run_latency`` under the forced budgets of ``testing.
+BENCH_GUARD_CASES`` (``freeze_bench_guard``: the keys that name the
+program it ran, and its selection; run alone, as it forces
+``testing.SHARDED_DEVICES`` virtual JAX devices);
 its parts (``bench:quality``, ``bench:replay``, ``bench:chain``,
 ``bench:scale``, ``bench:harvest``, ``bench:carry``, ``bench:smoke``,
 ``bench:soak``, ``bench:serve``, ``bench:sched``, ``bench:fleet``,
-``bench:edges``) may run in parallel processes.
+``bench:edges``, ``bench:guard``) may run in parallel processes.
 
 Run from the repo root:
 
@@ -1140,6 +1145,115 @@ def freeze_bench_edges(seed: int) -> dict:
     return out
 
 
+def reference_latency_row(config_id: int, n_devices: int, budget: int,
+                          solver: str = "jax", ticks: bool = True,
+                          seed: int = 0) -> tuple:
+    """The root ``bench.py``'s latency row (``_run_latency``, one repeat,
+    ``backend_note`` set so the device-only chain is skipped) on config
+    ``config_id`` over the first ``n_devices`` JAX devices, with
+    ``solver/memory.device_hbm_budget`` forced to ``budget``. Returns
+    (row, the selection vector of its last solve). ``ticks=False``
+    replaces its steady incremental ticks by a stub tick (their keys then
+    drop out): the guard's keys and the selection do not read them."""
+    import types
+
+    import jax
+
+    import k8s_spot_rescheduler_tpu.solver.select as ref_select
+    from k8s_spot_rescheduler_tpu.solver import memory as ref_memory
+
+    bench = _root_bench()
+    real_devices = jax.devices()
+    saved = (jax.devices, ref_memory.device_hbm_budget, bench.emit,
+             ref_select.decode_selection, bench.run_incremental_ticks)
+    rows, selections, in_ticks = [], [], []
+
+    def decode(vec):
+        sel = saved[3](vec)
+        if not in_ticks:  # the bench's own solves, not its planner's
+            selections.append([int(sel.index), int(sel.found),
+                               int(sel.n_feasible),
+                               *(int(v) for v in sel.row)])
+        return sel
+
+    def run_ticks(*args, **kwargs):
+        if not ticks:
+            report = types.SimpleNamespace(
+                upload_bytes=-1, delta_pack_lanes=-1, chunks_solved=0,
+                chunks_skipped=0, repair_chunks=0)
+            return [0.0, 0.0], [report], [0.0], []
+        in_ticks.append(True)
+        try:
+            return saved[4](*args, **kwargs)
+        finally:
+            in_ticks.clear()
+
+    jax.devices = lambda *a, **k: real_devices[:n_devices]
+    ref_memory.device_hbm_budget = lambda device=None: budget
+    bench.emit = rows.append
+    ref_select.decode_selection = decode
+    bench.run_incremental_ticks = run_ticks
+    try:
+        args = argparse.Namespace(config=config_id, scale=1.0, seed=seed,
+                                  repeats=1, solver=solver)
+        bench._run_latency(args, "drain_plan_ms", "ms", "run on the CPU")
+    finally:
+        (jax.devices, ref_memory.device_hbm_budget, bench.emit,
+         ref_select.decode_selection, bench.run_incremental_ticks) = saved
+    return rows[-1], selections[-1]
+
+
+def root_guard_keys(row: dict) -> dict:
+    """``testing.GUARD_KEYS`` of a root ``bench.py`` latency row in the
+    port's terms: the executed tier (the rung its ``scale_note`` names,
+    "2d" under the sharded solver, else "single"), and ``solver``
+    ("jax" and "pallas" are the port's "torch"; None inside the
+    budget)."""
+    import re
+
+    note = row.get("scale_note", "")
+    rung = re.search(r"executing the dispatch ladder's verdict: (\S+) ", note)
+    solver = row.get("solver")
+    return {
+        "tier": (rung.group(1) if rung
+                 else "2d" if solver == "sharded" else "single"),
+        "carry_chunks": row["carry_chunks"],
+        "carry_bytes": row["carry_bytes"],
+        "repair_unavailable": row["repair_unavailable"],
+        "solver": "torch" if solver in ("jax", "pallas") else solver,
+    }
+
+
+def freeze_bench_guard(seed: int) -> dict:
+    """The root ``bench.py``'s latency row under a forced budget for each
+    of ``testing.BENCH_GUARD_CASES`` (its steady ticks stubbed): the
+    budget, the guard's keys (``root_guard_keys``), ``scale_note`` and
+    the selection. Needs at least ``testing.SHARDED_DEVICES`` JAX
+    devices."""
+    from k8s_spot_rescheduler_tpu.solver import memory as ref_memory
+
+    out, packs = {}, {}
+    for tag, config_id, n, budget, solver in testing.BENCH_GUARD_CASES:
+        if config_id not in packs:
+            packs[config_id] = pack_config(config_id, seed)
+        if isinstance(budget, str):
+            budget = rung_budget(budget, packs[config_id], n)
+        row, selection = reference_latency_row(
+            config_id, n, budget,
+            solver="sharded" if solver == "sharded" else "jax",
+            ticks=False, seed=seed)
+        if "scale_note" not in row:
+            raise ValueError(f"{tag}: budget {budget} is inside the guard")
+        shapes = ref_memory.packed_shapes(packs[config_id])
+        out[tag] = {"config": config_id, "devices": n, "budget": int(budget),
+                    "solver": solver, "keys": root_guard_keys(row),
+                    "scale_note": row["scale_note"], "selection": selection,
+                    "shape": dict(zip("CKSRWA", map(int, shapes)))}
+        print(f"guard {tag}: {out[tag]['keys']} {row['scale_note']}",
+              file=sys.stderr)
+    return out
+
+
 BENCH_PARTS = {
     "quality": freeze_bench_quality,
     "replay": freeze_bench_replay,
@@ -1153,6 +1267,7 @@ BENCH_PARTS = {
     "sched": freeze_bench_sched,
     "fleet": freeze_bench_fleet,
     "edges": freeze_bench_edges,
+    "guard": freeze_bench_guard,
 }
 
 
@@ -1370,7 +1485,7 @@ def freeze_sharded(seed: int = 0) -> str:
 
 
 def main(argv) -> int:
-    if "sharded" in (argv or ()):
+    if {"sharded", "bench:guard"} & set(argv or ()):
         # before jax is imported: the mesh of the chip smoke's planner
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
