@@ -1,0 +1,11 @@
+"""``greedy_ms.<kind>``: mean ms a call of the greedy passes of every union solve (``union.greedy``: B1, B2 and their merge), summed a call,
+over the traced calls the profiler did not cover; None where no such
+call holds the span (a renamed span reads as missing, not as 0)."""
+
+SPAN = "union.greedy"
+
+
+def read(run, name):
+    if not any(SPAN in s for s in run.spans):
+        return None
+    return run.mean_span(name, SPAN)

@@ -70,7 +70,7 @@ EVENT_KINDS = DEGRADATION_KINDS | CONTEXT_KINDS
 # vocabulary the code itself emits, never cluster-derived identifiers
 SAFE_ATTR_KEYS = frozenset({
     "phase", "reason", "resource", "solver", "outcome", "bucket",
-    "method", "kind", "skipped", "source",
+    "method", "kind", "skipped", "source", "site",
 })
 CAUSE_MAX_CHARS = 200
 

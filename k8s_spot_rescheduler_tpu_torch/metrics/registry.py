@@ -233,6 +233,19 @@ plan_schedule_len = _gauge(
     "plan_schedule_len",
     "Drain steps in the last cut drain-to-exhaustion schedule.",
 )
+plan_schedules = _counter(
+    "plan_schedules_total",
+    "Drain schedules cut (plan_schedule calls that returned a schedule).",
+)
+device_syncs = _counter(
+    "device_syncs_total",
+    "Blocking device-to-host reads on the plan paths, by site: found (a "
+    "schedule step's chosen lane and stop gate), repair-gate (a union's "
+    "repair gate), fetch (a schedule's matrix), lane (a per-tick "
+    "selection's chosen lane), prefilter and selection (a per-tick plan's "
+    "fetches), step-validate (an executed schedule step's re-proof).",
+    ["site"],
+)
 schedule_invalidated = _counter(
     "schedule_invalidated",
     "Drain-schedule tails invalidated before execution by churn or a "
@@ -506,6 +519,14 @@ def update_plan_schedule_len(n: int) -> None:
     plan_schedule_len.set(n)
 
 
+def update_plan_schedule_cut() -> None:
+    plan_schedules.inc()
+
+
+def update_device_sync(site: str) -> None:
+    device_syncs.labels(site).inc()
+
+
 def update_schedule_invalidated() -> None:
     schedule_invalidated.inc()
 
@@ -597,6 +618,18 @@ def robustness_snapshot() -> dict:
         "orphaned_taints_recovered": orphaned_taints_recovered.value(),
         "schedule_invalidated": schedule_invalidated.value(),
         "degraded": rescheduler_degraded.value(),
+    }
+
+
+def host_sync_snapshot() -> dict:
+    """The host-sync counters (tests and the benchmark diff or divide;
+    process counters are cumulative): ``device_syncs`` summed over
+    sites, ``by_site``, site -> count, and ``plan_schedules``, the
+    schedules cut."""
+    return {
+        "device_syncs": _labeled_counter_total(device_syncs),
+        "by_site": _by_label(device_syncs),
+        "plan_schedules": _counter_value(plan_schedules),
     }
 
 

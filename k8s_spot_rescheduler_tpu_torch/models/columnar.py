@@ -97,6 +97,7 @@ from k8s_spot_rescheduler_tpu_torch.predicates.selectors import (
     selector_matches,
     term_matches,
 )
+from k8s_spot_rescheduler_tpu_torch.utils import tracing
 from k8s_spot_rescheduler_tpu_torch.utils.labels import matches_label
 
 # pod flag bits
@@ -1551,314 +1552,321 @@ class ColumnarStore:
                 # planner's delta emitter then sees prev IS new and
                 # ships zero bytes
                 return self._pack_memo[1]
-        v = verdicts if verdicts is not None else self._verdicts(
-            pdbs,
-            priority_threshold=priority_threshold,
-            delete_non_replicated=delete_non_replicated,
-        )
+        v = verdicts
+        if v is None:
+            with tracing.span("pack.verdicts"):
+                v = self._verdicts(
+                    pdbs,
+                    priority_threshold=priority_threshold,
+                    delete_non_replicated=delete_non_replicated,
+                )
         nhi, hi = v.nhi, v.hi
         od_rows, spot_rows = v.od_rows, v.spot_rows
         p_node = self.p_node[:hi]
         safe_node, counted = v.safe_node, v.counted
         R = len(self.resources)
 
-        # per-node requested CPU -> sort orders (nodes/nodes.go:95-101)
-        req_cpu = np.bincount(
-            p_node[counted], weights=self.p_cpu[:hi][counted].astype(np.float64),
-            minlength=nhi,
-        )
-        od_order = od_rows[
-            np.lexsort((self.n_seq[od_rows], req_cpu[od_rows]))
-        ]  # least-requested first
-        spot_order = spot_rows[
-            np.lexsort((self.n_seq[spot_rows], -req_cpu[spot_rows]))
-        ]  # most-requested first
-
-        blocks, evict, nonrep = v.blocks, v.evict, v.nonrep
-        pdb_names = v.pdb_names
-
-        # per-candidate verdicts
-        cand_rank = np.full(nhi, -1, np.int32)
-        cand_rank[od_order] = np.arange(len(od_order), dtype=np.int32)
-        C_actual = len(od_order)
-        n_evict = np.bincount(
-            cand_rank[p_node[evict & (cand_rank[safe_node] >= 0)]],
-            minlength=C_actual,
-        ) if C_actual else np.zeros(0, np.int64)
-        block_rows = np.nonzero(blocks & (cand_rank[safe_node] >= 0))[0]
-        has_block = np.zeros(C_actual, bool)
-        has_block[cand_rank[p_node[block_rows]]] = True
-
-        # blocking-pod report: per blocked candidate, the first blocker in
-        # slot order (cpu desc, seq ties) — rescheduler.go:232-238
-        blocking: List[Tuple[int, str]] = []
-        if len(block_rows):
-            order = np.lexsort(
-                (self.p_seq[block_rows], -self.p_cpu[block_rows],
-                 cand_rank[p_node[block_rows]])
+        with tracing.span("pack.order"):
+            # per-node requested CPU -> sort orders (nodes/nodes.go:95-101)
+            req_cpu = np.bincount(
+                p_node[counted], weights=self.p_cpu[:hi][counted].astype(np.float64),
+                minlength=nhi,
             )
-            seen_cand: Set[int] = set()
-            for r in block_rows[order]:
-                c = int(cand_rank[p_node[r]])
-                if c not in seen_cand:
-                    seen_cand.add(c)
-                    reason = (
-                        "pod is not replicated" if nonrep[r]
-                        else f"not enough pod disruption budget ({pdb_names[int(r)]})"
-                    )
-                    blocking.append((int(r), reason))
+            od_order = od_rows[
+                np.lexsort((self.n_seq[od_rows], req_cpu[od_rows]))
+            ]  # least-requested first
+            spot_order = spot_rows[
+                np.lexsort((self.n_seq[spot_rows], -req_cpu[spot_rows]))
+            ]  # most-requested first
 
-        # slot packing: evictable pods of non-blocked candidates, ordered
-        # (candidate, cpu desc, insertion) — nodes/nodes.go:76-80
-        cand_ok = ~has_block
-        pod_cand = cand_rank[safe_node]
-        packable = evict & (pod_cand >= 0)
-        if C_actual:
-            packable &= cand_ok[np.where(pod_cand >= 0, pod_cand, 0)]
-        slot_rows_u = np.nonzero(packable)[0]
-        order = np.lexsort(
-            (self.p_seq[slot_rows_u], -self.p_cpu[slot_rows_u],
-             pod_cand[slot_rows_u])
-        )
-        slot_rows = slot_rows_u[order].astype(np.int32)
-        slot_cand = pod_cand[slot_rows]
+            blocks, evict, nonrep = v.blocks, v.evict, v.nonrep
+            pdb_names = v.pdb_names
 
-        # presence visibility: counted pods plus pods on unclassified
-        # ready nodes AND not-ready nodes of any class (a requirer/match
-        # there still exists to the real scheduler, and spread's
-        # domain-min must see their domains; the object packer folds
-        # NodeMap.other/.unready identically) — shared by zone presence
-        # and spread counts
-        presence_extra = self.n_live[:nhi] & (
-            ~self.n_ready[:nhi] | (self.n_class[:nhi] == _OTHER)
-        )
-        zone_counted = counted | (
-            self.p_live[:hi] & (p_node >= 0) & presence_extra[safe_node]
-        )
-        # hard topology-spread carrier contexts (masks.SpreadBit): per
-        # carrier slot, the refused-domain verdict from this tick's
-        # match counts — must exist before the table is interned
-        slot_spread_bits, spread_universe = self._spread_contexts(
-            slot_rows, p_node, zone_counted, presence_extra,
-            od_rows, spot_rows,
-        )
-        slot_zpaff_bits, zpaff_universe = self._zone_paff_contexts(
-            slot_rows, p_node, counted
-        )
+            # per-candidate verdicts
+            cand_rank = np.full(nhi, -1, np.int32)
+            cand_rank[od_order] = np.arange(len(od_order), dtype=np.int32)
+            C_actual = len(od_order)
+            n_evict = np.bincount(
+                cand_rank[p_node[evict & (cand_rank[safe_node] >= 0)]],
+                minlength=C_actual,
+            ) if C_actual else np.zeros(0, np.int64)
+            block_rows = np.nonzero(blocks & (cand_rank[safe_node] >= 0))[0]
+            has_block = np.zeros(C_actual, bool)
+            has_block[cand_rank[p_node[block_rows]]] = True
 
-        # constraint table: built AFTER the slot set is known — its
-        # pseudo-taint tail is the slot pods' nodeSelector universe
-        # (identical to the object packer's, masks.intern_constraints)
-        table = self._build_taint_table(
-            spot_order, slot_rows, spread_universe, zpaff_universe
-        )
-        tol_matrix = self._toleration_matrix(table)
-        W = table.words
-        aff_matrix = self._affinity_matrix(
-            np.nonzero(counted)[0], np.nonzero(zone_counted)[0]
-        )
-        slot_counts = np.bincount(slot_cand, minlength=C_actual).astype(np.int32)
-        slot_starts = np.concatenate(
-            ([0], np.cumsum(slot_counts[:-1]))
-        ).astype(np.int32) if C_actual else np.zeros(0, np.int32)
-        slot_idx = (
-            np.arange(len(slot_rows), dtype=np.int32) - slot_starts[slot_cand]
-        ) if len(slot_rows) else np.zeros(0, np.int32)
+            # blocking-pod report: per blocked candidate, the first blocker in
+            # slot order (cpu desc, seq ties) — rescheduler.go:232-238
+            blocking: List[Tuple[int, str]] = []
+            if len(block_rows):
+                order = np.lexsort(
+                    (self.p_seq[block_rows], -self.p_cpu[block_rows],
+                     cand_rank[p_node[block_rows]])
+                )
+                seen_cand: Set[int] = set()
+                for r in block_rows[order]:
+                    c = int(cand_rank[p_node[r]])
+                    if c not in seen_cand:
+                        seen_cand.add(c)
+                        reason = (
+                            "pod is not replicated" if nonrep[r]
+                            else f"not enough pod disruption budget ({pdb_names[int(r)]})"
+                        )
+                        blocking.append((int(r), reason))
 
-        # static shapes (same padding policy as pack_cluster)
-        C = max(_pad_dim(C_actual), _pad_dim(pad_candidates))
-        S = max(_pad_dim(len(spot_order)), _pad_dim(pad_spot))
-        K = max(
-            _pad_dim(int(slot_counts.max()) if len(slot_counts) else 1),
-            _pad_dim(pad_slots),
-        )
+            # slot packing: evictable pods of non-blocked candidates, ordered
+            # (candidate, cpu desc, insertion) — nodes/nodes.go:76-80
+            cand_ok = ~has_block
+            pod_cand = cand_rank[safe_node]
+            packable = evict & (pod_cand >= 0)
+            if C_actual:
+                packable &= cand_ok[np.where(pod_cand >= 0, pod_cand, 0)]
+            slot_rows_u = np.nonzero(packable)[0]
+            order = np.lexsort(
+                (self.p_seq[slot_rows_u], -self.p_cpu[slot_rows_u],
+                 pod_cand[slot_rows_u])
+            )
+            slot_rows = slot_rows_u[order].astype(np.int32)
+            slot_cand = pod_cand[slot_rows]
 
-        packed = PackedCluster(
-            slot_req=np.zeros((C, K, R), np.float32),
-            slot_valid=np.zeros((C, K), bool),
-            slot_tol=np.zeros((C, K, W), np.uint32),
-            slot_aff=np.zeros((C, K, AFFINITY_WORDS), np.uint32),
-            cand_valid=np.zeros((C,), bool),
-            spot_free=np.zeros((S, R), np.float32),
-            spot_count=np.zeros((S,), np.int32),
-            spot_max_pods=np.zeros((S,), np.int32),
-            spot_taints=np.zeros((S, W), np.uint32),
-            spot_ok=np.zeros((S,), bool),
-            spot_aff=np.zeros((S, AFFINITY_WORDS), np.uint32),
-        )
+            # presence visibility: counted pods plus pods on unclassified
+            # ready nodes AND not-ready nodes of any class (a requirer/match
+            # there still exists to the real scheduler, and spread's
+            # domain-min must see their domains; the object packer folds
+            # NodeMap.other/.unready identically) — shared by zone presence
+            # and spread counts
+            presence_extra = self.n_live[:nhi] & (
+                ~self.n_ready[:nhi] | (self.n_class[:nhi] == _OTHER)
+            )
+            zone_counted = counted | (
+                self.p_live[:hi] & (p_node >= 0) & presence_extra[safe_node]
+            )
+            # hard topology-spread carrier contexts (masks.SpreadBit): per
+            # carrier slot, the refused-domain verdict from this tick's
+            # match counts — must exist before the table is interned
+        with tracing.span("pack.spread"):
+            slot_spread_bits, spread_universe = self._spread_contexts(
+                slot_rows, p_node, zone_counted, presence_extra,
+                od_rows, spot_rows,
+            )
+        with tracing.span("pack.predicates"):
+            slot_zpaff_bits, zpaff_universe = self._zone_paff_contexts(
+                slot_rows, p_node, counted
+            )
 
-        if len(slot_rows):
-            packed.slot_req[slot_cand, slot_idx] = self.p_req[slot_rows]
-            packed.slot_valid[slot_cand, slot_idx] = True
-            packed.slot_tol[slot_cand, slot_idx] = tol_matrix[
-                self.p_tol_id[slot_rows]
-            ]
-            packed.slot_aff[slot_cand, slot_idx] = aff_matrix[
-                self.p_aff_id[slot_rows]
-            ]
-            if self._zone_universe:
-                # zone lane guard (masks.zone_lane_guard, shared with the
-                # object packer): lanes holding a zone-anti CARRIER get
-                # the per-lane safety analysis; flagged pods lose their
-                # unplaceable-bit tolerance
-                carrier = np.fromiter(
-                    (bool(prof[3]) for prof in self._aff_lists),
-                    bool,
-                    count=len(self._aff_lists),
-                )[self.p_aff_id[slot_rows]]
-                if carrier.any():
+            # constraint table: built AFTER the slot set is known — its
+            # pseudo-taint tail is the slot pods' nodeSelector universe
+            # (identical to the object packer's, masks.intern_constraints)
+            table = self._build_taint_table(
+                spot_order, slot_rows, spread_universe, zpaff_universe
+            )
+            tol_matrix = self._toleration_matrix(table)
+            aff_matrix = self._affinity_matrix(
+                np.nonzero(counted)[0], np.nonzero(zone_counted)[0]
+            )
+        with tracing.span("pack.fill"):
+            W = table.words
+            slot_counts = np.bincount(slot_cand, minlength=C_actual).astype(np.int32)
+            slot_starts = np.concatenate(
+                ([0], np.cumsum(slot_counts[:-1]))
+            ).astype(np.int32) if C_actual else np.zeros(0, np.int32)
+            slot_idx = (
+                np.arange(len(slot_rows), dtype=np.int32) - slot_starts[slot_cand]
+            ) if len(slot_rows) else np.zeros(0, np.int32)
+
+            # static shapes (same padding policy as pack_cluster)
+            C = max(_pad_dim(C_actual), _pad_dim(pad_candidates))
+            S = max(_pad_dim(len(spot_order)), _pad_dim(pad_spot))
+            K = max(
+                _pad_dim(int(slot_counts.max()) if len(slot_counts) else 1),
+                _pad_dim(pad_slots),
+            )
+
+            packed = PackedCluster(
+                slot_req=np.zeros((C, K, R), np.float32),
+                slot_valid=np.zeros((C, K), bool),
+                slot_tol=np.zeros((C, K, W), np.uint32),
+                slot_aff=np.zeros((C, K, AFFINITY_WORDS), np.uint32),
+                cand_valid=np.zeros((C,), bool),
+                spot_free=np.zeros((S, R), np.float32),
+                spot_count=np.zeros((S,), np.int32),
+                spot_max_pods=np.zeros((S,), np.int32),
+                spot_taints=np.zeros((S, W), np.uint32),
+                spot_ok=np.zeros((S,), bool),
+                spot_aff=np.zeros((S, AFFINITY_WORDS), np.uint32),
+            )
+
+            if len(slot_rows):
+                packed.slot_req[slot_cand, slot_idx] = self.p_req[slot_rows]
+                packed.slot_valid[slot_cand, slot_idx] = True
+                packed.slot_tol[slot_cand, slot_idx] = tol_matrix[
+                    self.p_tol_id[slot_rows]
+                ]
+                packed.slot_aff[slot_cand, slot_idx] = aff_matrix[
+                    self.p_aff_id[slot_rows]
+                ]
+                if self._zone_universe:
+                    # zone lane guard (masks.zone_lane_guard, shared with the
+                    # object packer): lanes holding a zone-anti CARRIER get
+                    # the per-lane safety analysis; flagged pods lose their
+                    # unplaceable-bit tolerance
+                    carrier = np.fromiter(
+                        (bool(prof[3]) for prof in self._aff_lists),
+                        bool,
+                        count=len(self._aff_lists),
+                    )[self.p_aff_id[slot_rows]]
+                    if carrier.any():
+                        up = self._unplace_pos
+                        uw, ub = up // 32, np.uint32(1 << (up % 32))
+                        for c in np.unique(slot_cand[carrier]):
+                            rows = slot_rows[slot_cand == c]
+                            pods = [self.pod_objs[int(r)] for r in rows]
+                            for k in zone_lane_guard(pods):
+                                packed.slot_tol[int(c), int(k), uw] &= ~ub
+                if slot_spread_bits:
+                    # spread carriers lose tolerance of their own verdict
+                    # bits (per slot — the verdict depends on the lane's
+                    # node, which the per-profile toleration row cannot know)
+                    spread_pos = {
+                        e: i
+                        for i, e in enumerate(table.taints)
+                        if isinstance(e, SpreadBit)
+                    }
+                    for j, bits in slot_spread_bits.items():
+                        c, k = int(slot_cand[j]), int(slot_idx[j])
+                        for b in bits:
+                            pos = spread_pos[b]
+                            packed.slot_tol[c, k, pos // 32] &= ~np.uint32(
+                                1 << (pos % 32)
+                            )
+                    # spread lane guard (masks.spread_lane_guard, shared
+                    # with the object packer): >=2 in-plan movers involved
+                    # with one identity shift each other's counts
                     up = self._unplace_pos
                     uw, ub = up // 32, np.uint32(1 << (up % 32))
-                    for c in np.unique(slot_cand[carrier]):
+                    for c in np.unique(slot_cand[sorted(slot_spread_bits)]):
                         rows = slot_rows[slot_cand == c]
                         pods = [self.pod_objs[int(r)] for r in rows]
-                        for k in zone_lane_guard(pods):
+                        for k in spread_lane_guard(pods):
                             packed.slot_tol[int(c), int(k), uw] &= ~ub
-            if slot_spread_bits:
-                # spread carriers lose tolerance of their own verdict
-                # bits (per slot — the verdict depends on the lane's
-                # node, which the per-profile toleration row cannot know)
-                spread_pos = {
-                    e: i
-                    for i, e in enumerate(table.taints)
-                    if isinstance(e, SpreadBit)
-                }
-                for j, bits in slot_spread_bits.items():
-                    c, k = int(slot_cand[j]), int(slot_idx[j])
-                    for b in bits:
-                        pos = spread_pos[b]
-                        packed.slot_tol[c, k, pos // 32] &= ~np.uint32(
-                            1 << (pos % 32)
-                        )
-                # spread lane guard (masks.spread_lane_guard, shared
-                # with the object packer): >=2 in-plan movers involved
-                # with one identity shift each other's counts
-                up = self._unplace_pos
-                uw, ub = up // 32, np.uint32(1 << (up % 32))
-                for c in np.unique(slot_cand[sorted(slot_spread_bits)]):
-                    rows = slot_rows[slot_cand == c]
-                    pods = [self.pod_objs[int(r)] for r in rows]
-                    for k in spread_lane_guard(pods):
-                        packed.slot_tol[int(c), int(k), uw] &= ~ub
-            if slot_zpaff_bits:
-                # zone-positive-affinity carriers lose tolerance of
-                # their own context bits (per slot, lane-dependent; one
-                # bit per carried term — every term must hold)
-                zpaff_pos = {
-                    e: i
-                    for i, e in enumerate(table.taints)
-                    if isinstance(e, ZonePodAffinityBit)
-                }
-                for j, bits in slot_zpaff_bits.items():
-                    c, k = int(slot_cand[j]), int(slot_idx[j])
-                    for bit in bits:
-                        pos = zpaff_pos[bit]
-                        packed.slot_tol[c, k, pos // 32] &= ~np.uint32(
-                            1 << (pos % 32)
-                        )
-        if C_actual:
-            packed.cand_valid[:C_actual] = cand_ok & (n_evict > 0)
+                if slot_zpaff_bits:
+                    # zone-positive-affinity carriers lose tolerance of
+                    # their own context bits (per slot, lane-dependent; one
+                    # bit per carried term — every term must hold)
+                    zpaff_pos = {
+                        e: i
+                        for i, e in enumerate(table.taints)
+                        if isinstance(e, ZonePodAffinityBit)
+                    }
+                    for j, bits in slot_zpaff_bits.items():
+                        c, k = int(slot_cand[j]), int(slot_idx[j])
+                        for bit in bits:
+                            pos = zpaff_pos[bit]
+                            packed.slot_tol[c, k, pos // 32] &= ~np.uint32(
+                                1 << (pos % 32)
+                            )
+            if C_actual:
+                packed.cand_valid[:C_actual] = cand_ok & (n_evict > 0)
 
-        S_actual = len(spot_order)
-        if S_actual:
-            # spot pool accounting over counted pods (used = sum of scaled
-            # request rows; exact in f32 — values bounded by allocatable)
-            spot_rank = np.full(nhi, -1, np.int32)
-            spot_rank[spot_order] = np.arange(S_actual, dtype=np.int32)
-            sp_rows = np.nonzero(counted & (spot_rank[safe_node] >= 0))[0]
-            sp = spot_rank[p_node[sp_rows]]
-            used = np.zeros((S_actual, R), np.float64)
-            for j in range(R):
-                used[:, j] = np.bincount(
-                    sp, weights=self.p_req[sp_rows, j].astype(np.float64),
-                    minlength=S_actual,
+            S_actual = len(spot_order)
+            if S_actual:
+                # spot pool accounting over counted pods (used = sum of scaled
+                # request rows; exact in f32 — values bounded by allocatable)
+                spot_rank = np.full(nhi, -1, np.int32)
+                spot_rank[spot_order] = np.arange(S_actual, dtype=np.int32)
+                sp_rows = np.nonzero(counted & (spot_rank[safe_node] >= 0))[0]
+                sp = spot_rank[p_node[sp_rows]]
+                used = np.zeros((S_actual, R), np.float64)
+                for j in range(R):
+                    used[:, j] = np.bincount(
+                        sp, weights=self.p_req[sp_rows, j].astype(np.float64),
+                        minlength=S_actual,
+                    )
+                packed.spot_free[:S_actual] = (
+                    self.n_alloc[spot_order] - used.astype(np.float32)
                 )
-            packed.spot_free[:S_actual] = (
-                self.n_alloc[spot_order] - used.astype(np.float32)
-            )
-            packed.spot_count[:S_actual] = np.bincount(
-                sp, minlength=S_actual
-            ).astype(np.int32)
-            packed.spot_max_pods[:S_actual] = self.n_max_pods[spot_order]
-            packed.spot_ok[:S_actual] = ~self.n_unsched[spot_order]
-            packed.spot_taints[:S_actual] = self._spot_taint_rows(
-                spot_order, table
-            )
-            paff_bits = self._pod_affinity_node_bits(sp_rows, sp, S_actual, W)
-            if paff_bits is not None:
-                packed.spot_taints[:S_actual] |= paff_bits
-            if spread_universe or zpaff_universe:
-                # per-tick context node sides: a spot node repels a
-                # spread carrier when it lacks the topology key or sits
-                # in a refused domain, and a zone-paff carrier when its
-                # zone hosts no qualifying match. Vectorized per entry
-                # over the spot axis (advisor r4: the S×E Python loop
-                # was hot at scale): one per-topology-key domain column,
-                # then numpy membership tests per entry.
-                entries = [
-                    (i, e)
-                    for i, e in enumerate(table.taints)
-                    if isinstance(e, (SpreadBit, ZonePodAffinityBit))
-                ]
-                MISSING = "\x00"  # impossible as a k8s label value
-                topo_cols: Dict[str, np.ndarray] = {}
+                packed.spot_count[:S_actual] = np.bincount(
+                    sp, minlength=S_actual
+                ).astype(np.int32)
+                packed.spot_max_pods[:S_actual] = self.n_max_pods[spot_order]
+                packed.spot_ok[:S_actual] = ~self.n_unsched[spot_order]
+                packed.spot_taints[:S_actual] = self._spot_taint_rows(
+                    spot_order, table
+                )
+                paff_bits = self._pod_affinity_node_bits(sp_rows, sp, S_actual, W)
+                if paff_bits is not None:
+                    packed.spot_taints[:S_actual] |= paff_bits
+                if spread_universe or zpaff_universe:
+                    # per-tick context node sides: a spot node repels a
+                    # spread carrier when it lacks the topology key or sits
+                    # in a refused domain, and a zone-paff carrier when its
+                    # zone hosts no qualifying match. Vectorized per entry
+                    # over the spot axis (advisor r4: the S×E Python loop
+                    # was hot at scale): one per-topology-key domain column,
+                    # then numpy membership tests per entry.
+                    entries = [
+                        (i, e)
+                        for i, e in enumerate(table.taints)
+                        if isinstance(e, (SpreadBit, ZonePodAffinityBit))
+                    ]
+                    MISSING = "\x00"  # impossible as a k8s label value
+                    topo_cols: Dict[str, np.ndarray] = {}
 
-                def col(topo):
-                    vals = topo_cols.get(topo)
-                    if vals is None:
-                        vals = topo_cols[topo] = np.array(
-                            [
-                                self.node_objs[int(r)].labels.get(
-                                    topo, MISSING
-                                )
-                                for r in spot_order
-                            ]
-                        )
-                    return vals
+                    def col(topo):
+                        vals = topo_cols.get(topo)
+                        if vals is None:
+                            vals = topo_cols[topo] = np.array(
+                                [
+                                    self.node_objs[int(r)].labels.get(
+                                        topo, MISSING
+                                    )
+                                    for r in spot_order
+                                ]
+                            )
+                        return vals
 
-                for pos, e in entries:
-                    if isinstance(e, SpreadBit):
-                        vals = col(e.topology_key)
-                        bad = (vals == MISSING) | np.isin(
-                            vals, list(e.refused)
+                    for pos, e in entries:
+                        if isinstance(e, SpreadBit):
+                            vals = col(e.topology_key)
+                            bad = (vals == MISSING) | np.isin(
+                                vals, list(e.refused)
+                            )
+                        else:
+                            vals = col(ZONE_LABEL)
+                            bad = (vals == MISSING) | ~np.isin(
+                                vals, list(e.allowed_zones)
+                            )
+                        packed.spot_taints[:S_actual][bad, pos // 32] |= (
+                            np.uint32(1 << (pos % 32))
                         )
-                    else:
-                        vals = col(ZONE_LABEL)
-                        bad = (vals == MISSING) | ~np.isin(
-                            vals, list(e.allowed_zones)
+                aff = np.zeros((S_actual, AFFINITY_WORDS), np.uint32)
+                np.bitwise_or.at(aff, sp, self._host_matrix[self.p_aff_id[sp_rows]])
+                if self._zone_universe:
+                    # zone-wide presence: OR the zone-family masks of EVERY
+                    # counted pod plus every pod on an unclassified ready
+                    # node (any node class) into its node's zone, then into
+                    # each spot node in that zone
+                    zone_ids: Dict[str, int] = {}
+                    zid_node = np.full(nhi, -1, np.int32)
+                    for nr in range(nhi):
+                        obj = self.node_objs[nr]
+                        if obj is None:
+                            continue
+                        z = obj.labels.get(ZONE_LABEL)
+                        if z is not None:
+                            zid_node[nr] = zone_ids.setdefault(z, len(zone_ids))
+                    if zone_ids:
+                        crows = np.nonzero(zone_counted)[0]
+                        pz = zid_node[p_node[crows]]
+                        live = pz >= 0
+                        accum = np.zeros((len(zone_ids), AFFINITY_WORDS), np.uint32)
+                        np.bitwise_or.at(
+                            accum, pz[live],
+                            self._zone_matrix[self.p_aff_id[crows[live]]],
                         )
-                    packed.spot_taints[:S_actual][bad, pos // 32] |= (
-                        np.uint32(1 << (pos % 32))
-                    )
-            aff = np.zeros((S_actual, AFFINITY_WORDS), np.uint32)
-            np.bitwise_or.at(aff, sp, self._host_matrix[self.p_aff_id[sp_rows]])
-            if self._zone_universe:
-                # zone-wide presence: OR the zone-family masks of EVERY
-                # counted pod plus every pod on an unclassified ready
-                # node (any node class) into its node's zone, then into
-                # each spot node in that zone
-                zone_ids: Dict[str, int] = {}
-                zid_node = np.full(nhi, -1, np.int32)
-                for nr in range(nhi):
-                    obj = self.node_objs[nr]
-                    if obj is None:
-                        continue
-                    z = obj.labels.get(ZONE_LABEL)
-                    if z is not None:
-                        zid_node[nr] = zone_ids.setdefault(z, len(zone_ids))
-                if zone_ids:
-                    crows = np.nonzero(zone_counted)[0]
-                    pz = zid_node[p_node[crows]]
-                    live = pz >= 0
-                    accum = np.zeros((len(zone_ids), AFFINITY_WORDS), np.uint32)
-                    np.bitwise_or.at(
-                        accum, pz[live],
-                        self._zone_matrix[self.p_aff_id[crows[live]]],
-                    )
-                    spot_z = zid_node[spot_order]
-                    has_z = spot_z >= 0
-                    aff[has_z] |= accum[spot_z[has_z]]
-            packed.spot_aff[:S_actual] = aff
+                        spot_z = zid_node[spot_order]
+                        has_z = spot_z >= 0
+                        aff[has_z] |= accum[spot_z[has_z]]
+                packed.spot_aff[:S_actual] = aff
 
         meta = ColumnarMeta(
             store=self,

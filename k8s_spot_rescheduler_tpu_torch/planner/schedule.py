@@ -50,6 +50,7 @@ from k8s_spot_rescheduler_tpu_torch.solver.schedule import (
     slice_lane,
 )
 from k8s_spot_rescheduler_tpu_torch.solver.validate import validate_assignment
+from k8s_spot_rescheduler_tpu_torch.utils.syncs import device_sync
 
 
 def _meta_names(meta):
@@ -110,6 +111,12 @@ class DrainSchedule:
     # ------------------------------------------------------------------
 
     @property
+    def meta(self):
+        """The pack meta this schedule was cut with (read-only): its
+        candidate and spot rows, names and blocking pods."""
+        return self._base_meta
+
+    @property
     def exhausted(self) -> bool:
         return self.cursor >= len(self.steps)
 
@@ -118,7 +125,7 @@ class DrainSchedule:
         drainable when it was cut) — the tick's metrics stay coherent."""
         return PlanReport(
             plan=None,
-            n_candidates=self._base_meta.n_candidates,
+            n_candidates=self.meta.n_candidates,
             n_feasible=0,
             solve_seconds=0.0,
             solver=self.solver_label,
@@ -205,7 +212,7 @@ class DrainSchedule:
             # was just cut from: the live pack IS the base pack (the
             # tick thread is the only mutator) — skip the re-pack, keep
             # the from-scratch proof below
-            live_packed, live_meta = self._base_packed, self._base_meta
+            live_packed, live_meta = self._base_packed, self.meta
             live_cand, live_spot = self._cand_names, self._spot_names
         else:
             live_packed, live_meta = self._pack_fn(observation, pdbs)
@@ -252,7 +259,7 @@ class DrainSchedule:
             to_device(slice_lane(live_packed, c_live), self.device),
             torch.from_numpy(row_live[None]).to(self.device),
         )
-        if not bool(ok[0]):
+        if not device_sync("step-validate", bool, ok[0]):
             self._invalidate(
                 f"step {self.cursor} failed from-scratch validation "
                 f"against the live pack"

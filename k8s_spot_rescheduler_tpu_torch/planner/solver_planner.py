@@ -97,6 +97,7 @@ from k8s_spot_rescheduler_tpu_torch.solver.select import (
 from k8s_spot_rescheduler_tpu_torch.utils import logging as log
 from k8s_spot_rescheduler_tpu_torch.utils import tracing
 from k8s_spot_rescheduler_tpu_torch.utils.config import ReschedulerConfig
+from k8s_spot_rescheduler_tpu_torch.utils.syncs import device_sync
 
 
 def _observe_source(observation) -> str:
@@ -469,9 +470,11 @@ class TorchSolverPlanner:
         with tracing.span("plan.delta-upload"):
             device_packed = self.upload(packed)
         with tracing.span("plan.solve"):
-            return sched_mod.make_schedule_planner(self.union, horizon)(
+            mat = sched_mod.make_schedule_planner(self.union, horizon)(
                 device_packed
-            ).cpu().numpy()  # the ONE fetch for up to `horizon` drains
+            )
+            # the ONE fetch for up to `horizon` drains
+            return device_sync("fetch", torch.Tensor.cpu, mat).numpy()
 
     def _schedules(self, packed) -> bool:
         """Whether this pack's drain schedule can be cut: the schedule
@@ -660,6 +663,7 @@ class TorchSolverPlanner:
             self.fetches_total += 1
             self.schedule_lens.append(len(steps))
             metrics.update_plan_schedule_len(len(steps))
+            metrics.update_plan_schedule_cut()
             # why-no-drain observability per cut: step 0's feasible
             # count IS the fresh solve's
             self._report_conservatism(

@@ -32,6 +32,8 @@ import torch
 
 from k8s_spot_rescheduler_tpu_torch.solver.carry import NARROW_LAYOUT
 from k8s_spot_rescheduler_tpu_torch.solver.result import SolveResult
+from k8s_spot_rescheduler_tpu_torch.utils import tracing
+from k8s_spot_rescheduler_tpu_torch.utils.syncs import device_sync
 
 
 def _prefer(first: SolveResult, then: SolveResult) -> SolveResult:
@@ -48,7 +50,9 @@ def _prefer(first: SolveResult, then: SolveResult) -> SolveResult:
 def _needs_repair(packed, greedy: SolveResult) -> bool:
     """The one host sync of a union solve: did the greedy passes leave a
     valid lane unproven?"""
-    return bool((packed.cand_valid & ~greedy.feasible).any())
+    return device_sync(
+        "repair-gate", bool, (packed.cand_valid & ~greedy.feasible).any()
+    )
 
 
 def _staged(greedy, finish):
@@ -78,7 +82,8 @@ def with_best_fit_fallback(solve_fn):
     ``solve_fn(packed, best_fit=True)``."""
 
     def solve(packed) -> SolveResult:
-        return _prefer(solve_fn(packed), solve_fn(packed, best_fit=True))
+        with tracing.span("union.greedy"):
+            return _prefer(solve_fn(packed), solve_fn(packed, best_fit=True))
 
     return solve
 
@@ -105,7 +110,8 @@ def with_repair(solve_fn, rounds: int, spot_chunks: int = 1):
     def finish(packed, union: SolveResult) -> SolveResult:
         if not _needs_repair(packed, union):
             return union
-        return _prefer(union, repair(packed))
+        with tracing.span("union.repair"):
+            return _prefer(union, repair(packed))
 
     return _staged(greedy, finish)
 
@@ -165,25 +171,27 @@ def with_repair_streamed(
             )
 
     def greedy(packed) -> SolveResult:
-        ff = first_fit(packed)
-        if not best_fit_fallback:
-            return ff
-        return _prefer(ff, best_fit(packed))
+        with tracing.span("union.greedy"):
+            ff = first_fit(packed)
+            if not best_fit_fallback:
+                return ff
+            return _prefer(ff, best_fit(packed))
 
     def finish(packed, union: SolveResult) -> SolveResult:
         if (not best_fit_fallback or rounds <= 0
                 or not _needs_repair(packed, union)):
             return union
-        return _prefer(
-            union,
-            plan_repair_chunked(
-                packed,
-                rounds=rounds,
-                chain=chain,
-                spot_chunks=carry_chunks,
-                layout=layout,
-            ),
-        )
+        with tracing.span("union.repair"):
+            return _prefer(
+                union,
+                plan_repair_chunked(
+                    packed,
+                    rounds=rounds,
+                    chain=chain,
+                    spot_chunks=carry_chunks,
+                    layout=layout,
+                ),
+            )
 
     return _staged(greedy, finish)
 

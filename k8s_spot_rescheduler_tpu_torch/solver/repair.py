@@ -56,6 +56,7 @@ from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
 )
 from k8s_spot_rescheduler_tpu_torch.solver.result import SolveResult
 from k8s_spot_rescheduler_tpu_torch.solver.validate import validate_assignment
+from k8s_spot_rescheduler_tpu_torch.utils import tracing
 
 DEFAULT_ROUNDS = 8
 
@@ -312,15 +313,16 @@ def plan_repair(
     S = packed.spot_free.shape[0]
     A = packed.spot_aff.shape[1]
 
-    static = _spot_statics(packed)
-    carry = _zero_carry(layout, C, R, A, S, packed.cand_valid)
-    assign0 = torch.full(
-        (C, K), -1, dtype=torch.int32, device=packed.slot_req.device
-    )
-    for k in range(K):
-        carry, assign0[:, k] = _partial_scan_step(
-            static, carry, _slot(packed, k)
+    with tracing.span("repair.partial"):
+        static = _spot_statics(packed)
+        carry = _zero_carry(layout, C, R, A, S, packed.cand_valid)
+        assign0 = torch.full(
+            (C, K), -1, dtype=torch.int32, device=packed.slot_req.device
         )
+        for k in range(K):
+            carry, assign0[:, k] = _partial_scan_step(
+                static, carry, _slot(packed, k)
+            )
 
     state = _RepairCarry(
         used=carry.used, dcount=carry.dcount, daff=carry.daff, assign=assign0
@@ -333,13 +335,15 @@ def plan_repair(
         packed.slot_tol,
         packed.slot_aff,
     )
-    for i in range(rounds):
-        state = _repair_round(repair_static, chain, state, i)
+    with tracing.span("repair.rounds"):
+        for i in range(rounds):
+            state = _repair_round(repair_static, chain, state, i)
 
-    feasible = validate_assignment(packed, state.assign)
-    assignment = torch.where(feasible[:, None], state.assign, -1).to(
-        torch.int32
-    )
+    with tracing.span("repair.validate"):
+        feasible = validate_assignment(packed, state.assign)
+        assignment = torch.where(feasible[:, None], state.assign, -1).to(
+            torch.int32
+        )
     return SolveResult(feasible=feasible, assignment=assignment)
 
 
@@ -612,13 +616,14 @@ def plan_repair_chunked(
     Sc = -(-S // n)
     pad = n * Sc - S
 
-    chunk_xs = chunked_spot_statics(packed, n, Sc)
-    state = _zero_chunk_state(layout, n, C, R, A, Sc, dev)
-    assign0 = torch.full((C, K), -1, dtype=torch.int32, device=dev)
-    for k in range(K):
-        state, assign0[:, k] = _chunked_partial_step(
-            chunk_xs, Sc, state, _slot(packed, k)
-        )
+    with tracing.span("repair.partial"):
+        chunk_xs = chunked_spot_statics(packed, n, Sc)
+        state = _zero_chunk_state(layout, n, C, R, A, Sc, dev)
+        assign0 = torch.full((C, K), -1, dtype=torch.int32, device=dev)
+        for k in range(K):
+            state, assign0[:, k] = _chunked_partial_step(
+                chunk_xs, Sc, state, _slot(packed, k)
+            )
 
     small = (
         pad_spot_axis(packed.spot_aff, pad),  # static resident bits [Sp, A]
@@ -628,10 +633,14 @@ def plan_repair_chunked(
         packed.slot_aff,
     )
     state = (*state, assign0)
-    for i in range(rounds):
-        state = _chunked_repair_round(small, chunk_xs, chain, Sc, state, i)
+    with tracing.span("repair.rounds"):
+        for i in range(rounds):
+            state = _chunked_repair_round(small, chunk_xs, chain, Sc, state, i)
     assign = state[3]
 
-    feasible = validate_assignment(packed, assign)
-    assignment = torch.where(feasible[:, None], assign, -1).to(torch.int32)
+    with tracing.span("repair.validate"):
+        feasible = validate_assignment(packed, assign)
+        assignment = torch.where(feasible[:, None], assign, -1).to(
+            torch.int32
+        )
     return SolveResult(feasible=feasible, assignment=assignment)

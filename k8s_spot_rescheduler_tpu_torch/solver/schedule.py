@@ -9,9 +9,13 @@ the schedule as ONE int32 matrix ``[horizon, 3 + K]``: per step
 drainable) writes its ``found=0`` row and the loop stops; rows after
 it stay -1, so the matrix is self-delimiting.
 
-Host syncs: the loop reads ``found`` once per step to stop at the
-terminal probe (the reference's ``while_loop`` condition), beside the
-union's own gates (``solver/fallback``); the matrix is fetched once.
+Host syncs: each step reads the chosen lane's index and ``found``
+together, once, before its commit: the index takes the lane's rows and
+``found`` stops the loop at the terminal probe (the reference's
+``while_loop`` condition). Beside it the union reads its own gate
+(``solver/fallback``), and the matrix is fetched once. So a cut of H
+steps makes 2·H + 1 reads, and one a terminal probe ends after n drains
+2·n + 3 (``utils/syncs.device_sync`` counts them by site).
 The commit's per-node load is an ``index_add_`` of integral f32
 requests (exact in any order), never a matmul.
 """
@@ -24,6 +28,8 @@ import numpy as np
 import torch
 
 from k8s_spot_rescheduler_tpu_torch.solver.ffd import first_true, or_reduce
+from k8s_spot_rescheduler_tpu_torch.utils import tracing
+from k8s_spot_rescheduler_tpu_torch.utils.syncs import device_sync
 
 
 class ScheduleStep(NamedTuple):
@@ -59,31 +65,41 @@ def schedule_matrix(solve_fn, packed, horizon: int) -> torch.Tensor:
         feasible = res.feasible & cand_valid
         found = feasible.any()
         idx = first_true(feasible)
-        row = res.assignment[idx].to(torch.int32)  # [K]
-        # commit (a masked no-op when nothing was found): evictees
-        # deplete spot capacity, bump pod counts and land their
-        # anti-affinity words; the drained lane leaves the candidates
-        placed = (row >= 0) & packed.slot_valid[idx] & found  # [K]
-        onehot = (iota_s[None, :] == row[:, None]) & placed[:, None]  # [K, S]
-        load = torch.zeros_like(free).index_add_(
-            0, row.clamp(min=0).long(), packed.slot_req[idx] * placed[:, None]
+        # the step's one read: the lane's rows are taken at a host index
+        # (a 0-dim device index reads itself to the host at every use),
+        # and ``found`` ends the loop after the terminal probe's row
+        i, f = device_sync(
+            "found", torch.Tensor.tolist, torch.stack((idx, found.long()))
         )
-        free = free - load
-        count = count + onehot.sum(dim=0).to(count.dtype)
-        aff = aff | or_reduce(
-            torch.where(onehot[:, :, None], packed.slot_aff[idx][:, None, :], 0),
-            0,
-        )
-        cand_valid = cand_valid & ~(found & (iota_c == idx))
-        out[step] = torch.cat(
-            [
-                torch.where(found, idx.to(torch.int32), minus_one),
-                found.reshape(1).to(torch.int32),
-                feasible.sum().reshape(1).to(torch.int32),
-                torch.where(found, row, -1),
-            ]
-        )
-        if not bool(found):
+        with tracing.span("schedule.commit"):
+            row = res.assignment[i].to(torch.int32)  # [K]
+            # commit (a masked no-op when nothing was found): evictees
+            # deplete spot capacity, bump pod counts and land their
+            # anti-affinity words; the drained lane leaves the candidates
+            placed = (row >= 0) & packed.slot_valid[i] & found  # [K]
+            onehot = (iota_s[None, :] == row[:, None]) & placed[:, None]
+            load = torch.zeros_like(free).index_add_(
+                0, row.clamp(min=0).long(),
+                packed.slot_req[i] * placed[:, None],
+            )
+            free = free - load
+            count = count + onehot.sum(dim=0).to(count.dtype)
+            aff = aff | or_reduce(
+                torch.where(
+                    onehot[:, :, None], packed.slot_aff[i][:, None, :], 0
+                ),
+                0,
+            )
+            cand_valid = cand_valid & ~(found & (iota_c == idx))
+            out[step] = torch.cat(
+                [
+                    torch.where(found, idx.to(torch.int32), minus_one),
+                    found.reshape(1).to(torch.int32),
+                    feasible.sum().reshape(1).to(torch.int32),
+                    torch.where(found, row, -1),
+                ]
+            )
+        if not f:
             break
     return out
 

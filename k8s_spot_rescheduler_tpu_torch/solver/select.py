@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from k8s_spot_rescheduler_tpu_torch.solver.ffd import first_true
+from k8s_spot_rescheduler_tpu_torch.utils.syncs import device_sync
 
 
 class Selection(NamedTuple):
@@ -40,12 +41,15 @@ def selection_vector(solve_fn, packed) -> torch.Tensor:
     # candidates are pre-sorted least-requested-first: the first True of
     # the mask IS the reference's drain choice
     idx = first_true(feasible)
+    # the lane's row is taken at a host index: a 0-dim device index
+    # reads itself to the host where it is used
+    row = res.assignment[device_sync("lane", int, idx)]
     return torch.cat(
         [
             idx.reshape(1).to(torch.int32),
             feasible.any().reshape(1).to(torch.int32),
             feasible.sum().reshape(1).to(torch.int32),
-            res.assignment[idx].to(torch.int32),
+            row.to(torch.int32),
         ]
     )
 
@@ -63,7 +67,7 @@ def make_fused_planner(solve_fn):
 def decode_selection(vec) -> Selection:
     """One host fetch, then unpack."""
     if isinstance(vec, torch.Tensor):
-        vec = vec.cpu().numpy()
+        vec = device_sync("selection", torch.Tensor.cpu, vec).numpy()
     vec = np.asarray(vec)
     return Selection(
         index=int(vec[0]),
@@ -123,7 +127,9 @@ class StagedPlanner:
         if maybe is None:
             maybe = self.dispatch_prefilter(packed)
         if isinstance(maybe, torch.Tensor):
-            maybe = maybe.cpu().numpy()  # C bools: a host sync
+            maybe = device_sync(  # C bools
+                "prefilter", torch.Tensor.cpu, maybe
+            ).numpy()
         maybe = np.asarray(maybe)
         chunk = self.chunk_lanes
         starts = list(range(0, C, chunk))
@@ -171,7 +177,9 @@ class StagedPlanner:
         while run["pending"]:
             self._dispatch_next(run)
             start, pending_vec = run["pending"].popleft()
-            vec = pending_vec.cpu().numpy()
+            vec = device_sync(
+                "selection", torch.Tensor.cpu, pending_vec
+            ).numpy()
             fetched += 1
             n_feasible += int(vec[2])
             if found_idx < 0 and vec[1]:

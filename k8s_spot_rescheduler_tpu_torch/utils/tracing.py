@@ -19,6 +19,11 @@ appends + ``perf_counter`` reads), zero device syncs, and a hard
 bound (drops are counted on the trace). ``trace_enabled`` (config)
 turns the whole layer off.
 
+Host syncs. Every blocking device-to-host read on the plan paths goes
+through ``utils/syncs.device_sync``, which counts it in
+``device_syncs_total{site}`` and, under a trace, times it as a
+``device.sync`` span.
+
 Phases of the pipelined tick (loop/controller.py): ``observe`` (cluster
 state + PDBs), ``plan-dispatch`` (host pack + delta-upload + async solve
 dispatch), ``observe-metrics`` (per-node metrics — host work that runs
@@ -70,6 +75,22 @@ SPAN_NAMES: Dict[str, str] = {
     "plan.delta-upload": "device-resident cache update (delta or repack)",
     "plan.solve": "the solve the tick actually waited on (fetch/oracle)",
     "plan.schedule": "drain-to-exhaustion schedule cut: one fetch, H steps",
+    # inside the plan (models/columnar.py, solver/fallback.py,
+    # solver/repair.py, solver/schedule.py and utils/syncs.py)
+    "pack.verdicts": "the pack's evictability, PDB and node-class verdicts",
+    "pack.order": "candidate and spot orders, blocking pods and slot order",
+    "pack.spread": "hard topology-spread contexts of the packed pods",
+    "pack.predicates": "zone pod-affinity contexts, taint table, tolerations "
+                       "and the affinity matrix of the pack",
+    "pack.fill": "the problem arrays: lanes, slots and the spot pool's state",
+    "union.greedy": "one union solve's greedy passes (B1, B2 and their merge)",
+    "union.repair": "one union solve's repair, where the greedy passes left "
+                    "a valid lane unproven",
+    "repair.partial": "repair's partial best-fit pass over the K slots",
+    "repair.rounds": "every round of repair's eject-and-reinsert search",
+    "repair.validate": "repair's from-scratch validation of its lanes",
+    "schedule.commit": "one schedule step's commit and its row of the matrix",
+    "device.sync": "the host blocked on one device-to-host read (site attr)",
     # agent <-> service wire (service/agent.py)
     "wire.request": "full service round trip; server spans graft under it",
     "wire.transfer": "wire residual: round trip minus server-side spans",
@@ -129,7 +150,9 @@ class Trace:
         self.attrs: Dict[str, object] = {}
         self.spans: List[Span] = []
         self.dropped = 0
-        self._t0 = time.perf_counter()
+        # the trace's start on time.perf_counter: every span's t0_ms is
+        # its offset from here
+        self.origin = time.perf_counter()
         self._stack: List[Span] = []
         self._n = 0
 
@@ -152,12 +175,17 @@ class Trace:
     def span(self, name: str, **attrs):
         """One nested timed region; yields the Span (or None past the
         cap). A body that raises still records the span, with an
-        ``error: true`` attribute, and re-raises."""
+        ``error: true`` attribute, and re-raises. While a trace dir is
+        set (``enable_profiler``) the span is also a
+        ``torch.profiler.record_function`` range of the same name."""
         if not self._admit():
             yield None
             return
+        rf = _profiler_range(name) if _trace_dir is not None else None
+        if rf is not None:
+            rf.__enter__()
         start = time.perf_counter()
-        sp = Span(name, (start - self._t0) * 1e3, attrs=attrs or None)
+        sp = Span(name, (start - self.origin) * 1e3, attrs=attrs or None)
         self._stack.append(sp)
         try:
             yield sp
@@ -168,6 +196,8 @@ class Trace:
             sp.dur_ms = (time.perf_counter() - start) * 1e3
             self._stack.pop()
             self._attach(sp)
+            if rf is not None:
+                rf.__exit__(None, None, None)
 
     def graft(
         self,
@@ -293,8 +323,9 @@ _trace_seq = [0]  # Chrome traces written by this process
 
 
 def enable_profiler(trace_dir: str) -> None:
-    """Annotate subsequent ``phase(...)`` blocks for torch.profiler and
-    let ``device_trace`` write its Chrome traces under ``trace_dir``."""
+    """Annotate subsequent ``phase(...)`` blocks and spans for
+    torch.profiler and let ``device_trace`` write its Chrome traces
+    under ``trace_dir``."""
     global _trace_dir
     _trace_dir = trace_dir
 
@@ -302,6 +333,18 @@ def enable_profiler(trace_dir: str) -> None:
 def disable_profiler() -> None:
     global _trace_dir
     _trace_dir = None
+
+
+def _profiler_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name``, or None
+    where torch.profiler is unavailable."""
+    try:
+        import torch.profiler
+
+        return torch.profiler.record_function(name)
+    except Exception as err:  # noqa: BLE001 — profiling is best-effort
+        log.vlog(2, "profiler unavailable: %s", err)
+        return None
 
 
 @contextlib.contextmanager
@@ -312,18 +355,14 @@ def phase(name: str):
     then carries ``error: true`` — so an error-skipped tick still
     explains where its time went."""
     start = time.perf_counter()
-    ctx = contextlib.nullcontext()
-    if _trace_dir is not None:
-        try:
-            import torch.profiler
-
-            ctx = torch.profiler.record_function(name)
-        except Exception as err:  # noqa: BLE001 — profiling is best-effort
-            log.vlog(2, "profiler unavailable: %s", err)
     t = current_trace()
-    sctx = t.span(name) if t is not None else contextlib.nullcontext()
+    ctx = contextlib.nullcontext()
+    if t is not None:
+        ctx = t.span(name)  # the span opens the profiler range itself
+    elif _trace_dir is not None:
+        ctx = _profiler_range(name) or ctx
     try:
-        with ctx, sctx:
+        with ctx:
             yield
     finally:
         metrics.observe_tick_phase(name, time.perf_counter() - start)

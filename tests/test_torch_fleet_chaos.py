@@ -217,6 +217,37 @@ def test_half_closed_pooled_sockets_reconnect_without_a_fallback():
     assert after["remote_planner_failover"] == before["remote_planner_failover"]
 
 
+def test_a_failover_grafts_the_failed_attempt_as_a_wire_failover_span():
+    import socket
+
+    cfg = ReschedulerConfig(resources=CONFIGS[2].resources,
+                            planner_timeout=60.0)
+    fleet = _fleet(1, cfg)
+    server = ServiceServer(cfg, "127.0.0.1:0", batch_window_s=0.0,
+                           device="cpu")
+    server.start_background()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    dead_port = s.getsockname()[1]
+    s.close()
+    try:
+        agent = RemotePlanner(
+            cfg, f"http://127.0.0.1:{dead_port},http://{server.address}",
+            tenant="t0")
+        before = metrics.service_snapshot()
+        report = agent.plan(*fleet[0])
+        after = metrics.service_snapshot()
+    finally:
+        server.close()
+    assert report.solver == "remote"
+    assert agent.last_endpoint == f"http://{server.address}"
+    assert after["remote_planner_failover"] == (
+        before["remote_planner_failover"] + 1)
+    (sp,) = agent.last_trace.find("wire.failover")
+    assert sp.attrs["error"] is True
+    assert sp.attrs["endpoint"] == f"http://127.0.0.1:{dead_port}"
+
+
 # --- the service ---------------------------------------------------------------
 
 
