@@ -41,7 +41,12 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    the JAX package's answers): greedy leaves most valid lanes unproven,
    so repair runs on the card; the union's and repair's feasible
    vectors and assignments, the schedule and both selections must equal
-   the JAX package's, and the contended tick is timed;
+   the JAX package's, and the contended tick is timed. Then B5 (repair's
+   partial pass and rounds in one launch, ``repair_phase``) lane for
+   lane against plain ``plan_repair`` on the harvested tick, the
+   contended problem, seeded packs where direct and chain moves fire,
+   and a pack whose lanes all pass greedy, one launch a call, and timed
+   on the harvested tick;
 5. the carry-streamed narrow union (``union_program(8, carry_chunks=n,
    carry_layout=carry_layout(pack))`` with the kernels on: first-fit
    B3 in one launch over n spot chunks, best-fit B4 with the narrow
@@ -185,6 +190,10 @@ JAX package's answers in ``k8s_spot_rescheduler_tpu_torch/data/``:
    numbers equal to the root ``bench.py``'s. Each rung's ms a call (CUDA
    events) and launches are printed. One card cannot show concurrency
    between cards nor peer copies; this phase does not claim them.
+
+B5's ``launches`` in the ``kernels`` line are those of B1/B2's paths
+where a union's repair gate fired (its time is phase 4's); a mesh
+rung's unchunked repair (cand, 2-D) may launch it once a lane block.
 
 Any mismatch or error exits non-zero. Without a card, or without the
 rest of the repo beside it, it exits non-zero and prints no result. The
@@ -593,6 +602,139 @@ def contended_phase(np, torch, fk, host, ans, kind, card) -> str:
         f"{sched_s * 1e3:.3f} ms); host clock around synced fetches, on "
         f"{kind} [{card}]"
     )
+
+
+def repair_phase(np, torch, fk, hostc, kind, card):
+    """Phase 4's B5 checks: ``ops/ffd_kernels.plan_repair_kernel`` (B5,
+    then the plain validation) on the lanes first-fit ∪ best-fit leave
+    unproven, one launch a call, lane for lane against plain
+    ``plan_repair``, B5's raw rows (``launch_repair_raw``) against the
+    plain twin ``plan_repair_plain``, and the union (``with_repair``),
+    with the launch counts reset just before, launching B5 once and
+    equal to greedy ∪ plain repair, on the harvested tick, the contended
+    problem, the seeded ``testing.repair_pack`` packs (direct and chain
+    moves fire) and a pack whose valid lanes all pass greedy (every row
+    -1; the union's gate skips repair). B5 is timed on the harvested
+    tick beside the plain pass and its bound. Returns (lines, the
+    kernels-line row)."""
+    from k8s_spot_rescheduler_tpu_torch import testing
+    from k8s_spot_rescheduler_tpu_torch.models.tensors import (
+        load_npz,
+        to_device,
+    )
+    from k8s_spot_rescheduler_tpu_torch.solver.fallback import (
+        _prefer,
+        with_best_fit_fallback,
+        with_repair,
+    )
+    from k8s_spot_rescheduler_tpu_torch.solver.repair import plan_repair
+
+    greedy_fn = with_best_fit_fallback(fk.greedy_solver())
+    saved = dict(fk.LAUNCHES)
+
+    def union_b5(dev):
+        """The union on ``dev`` with the launch counts reset just
+        before: (result, B5's launches)."""
+        fk.reset_launch_counts()
+        res = with_repair(fk.greedy_solver(), 8)(dev)
+        torch.cuda.synchronize()
+        return res, fk.LAUNCHES["B5"]
+
+    def b5_check(name, dev):
+        greedy = greedy_fn(dev)
+        unproven = dev.cand_valid & ~greedy.feasible
+        before = fk.LAUNCHES["B5"]
+        got = fk.plan_repair_kernel(dev, unproven, 8)
+        check(fk.LAUNCHES["B5"] == before + 1,
+              f"[4] B5 on {name}: {fk.LAUNCHES['B5'] - before} launches")
+        plain = plan_repair(dev, rounds=8)
+        u = unproven
+        check(torch.equal(got.feasible[u], plain.feasible[u])
+              and torch.equal(got.assignment[u], plain.assignment[u]),
+              f"[4] B5 on {name}: an unproven lane != plain plan_repair's")
+        check(torch.equal(fk.launch_repair_raw(dev, unproven, 8),
+                          fk.plan_repair_plain(dev, unproven, 8)),
+              f"[4] B5 on {name}: raw rows != the plain twin's")
+        union, b5 = union_b5(dev)
+        want = int(bool(u.any()))  # the gate fires where a lane is unproven
+        check(b5 == want,
+              f"[4] the union on {name}: {b5} B5 launches, want {want}")
+        check(same(torch, union, _prefer(greedy, plain)) == 0,
+              f"[4] B5 on {name}: the union != greedy ∪ plain repair")
+        return int(u.sum()), int((got.feasible & u).sum())
+
+    lines = []
+    hosth, _ = load_npz(testing.HARVEST_PATH)
+    devh = to_device(hosth, "cuda")
+    packs = [("the harvested tick", devh),
+             ("contended", to_device(hostc, "cuda"))]
+    for shape in testing.REPAIR_SHAPES:
+        packs += [(f"repair_pack({seed}, {shape!r})",
+                   to_device(testing.repair_pack(seed, shape), "cuda"))
+                  for seed in range(4)]
+    counts = [(name, *b5_check(name, dev)) for name, dev in packs]
+    check(counts[0][1] > 0 and counts[1][1] > 0,
+          f"[4] the harvested tick or the contended problem has no "
+          f"unproven lane: {counts[:2]}")
+    lines.append(
+        "[4] B5 (partial pass + 8 rounds, one launch) lane for lane == "
+        "plain plan_repair, raw rows == the plain twin, union == greedy ∪ "
+        "plain repair, unproven/proved by repair: "
+        + ", ".join(f"{n} {u}/{p}" for n, u, p in counts))
+
+    # every valid lane passes greedy: B5 writes -1 rows, the union
+    # repairs nothing
+    base = to_device(testing.repair_pack(0), "cuda")
+    greedy = greedy_fn(base)
+    proven = base._replace(cand_valid=(base.cand_valid
+                                       & greedy.feasible).contiguous())
+    unproven = proven.cand_valid & ~greedy_fn(proven).feasible
+    check(not bool(unproven.any()), "[4] the all-proven pack has a gap")
+    assign = fk.launch_repair_raw(proven, unproven, 8)
+    union, b5 = union_b5(proven)
+    check(bool((assign == -1).all()), "[4] B5 wrote a row on a proven lane")
+    check(b5 == 0 and same(torch, union, greedy_fn(proven)) == 0,
+          "[4] the all-proven pack: the union launched B5 or moved")
+    lines.append(f"[4] B5 on a pack whose {int(proven.cand_valid.sum())} "
+                 f"valid lanes all pass greedy: every row -1, the union "
+                 f"is greedy's with no repair launch")
+
+    # time on the harvested tick (C=512 K=64 S=512)
+    unproven = devh.cand_valid & ~greedy_fn(devh).feasible
+
+    def kern():
+        return fk.launch_repair_raw(devh, unproven, 8)
+
+    ms = time_ms(torch, kern)
+    dev_ms = device_ms(torch, kern, "repair_kernel")
+    entry_ms = time_ms(torch, lambda: fk.plan_repair_kernel(devh, unproven,
+                                                            8))
+    plain_ms = time_ms(torch, lambda: plan_repair(devh, rounds=8), reps=5,
+                       warmup=1)
+    # the partial pass's work on the unproven lanes: B5 does at least it
+    part = hosth._replace(cand_valid=unproven.cpu().numpy())
+    bound_ms, bound_by = ffd_bound(np, part, None, True)
+    g = fk.card_repair_geometry(devh, 8)
+    lines.append(
+        f"[4] B5 on the harvested tick ({int(unproven.sum())} unproven "
+        f"lanes; {g.lanes_per_block} lanes x {g.warps_per_lane} warps a "
+        f"block, {g.lane_bytes} B a lane, {g.smem_bytes} B a block): "
+        f"{ms:.4f} ms a launch (CUDA events), {fmt_ms(dev_ms)} ms on "
+        f"the device (profiler), {entry_ms:.4f} ms with the plain "
+        f"validation (the union's call), {plain_ms:.4f} ms plain "
+        f"plan_repair, bound "
+        f"{bound_ms:.6f} ms ({bound_by}, the partial pass) on {kind} "
+        f"[{card}]")
+    row = dict(
+        name="B5", what="repair's partial pass and 8 rounds", route="cuda",
+        source="k8s_spot_rescheduler_tpu_torch/ops/csrc/repair.cu",
+        replaces="none (the JAX package leaves solver/repair.py's "
+                 "plan_repair to XLA)",
+        max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    )
+    fk.LAUNCHES.update(saved)
+    return lines, row
 
 
 def stream_union_breakdown(torch, fk, packed, layout, n: int) -> str:
@@ -2472,8 +2614,8 @@ def guard_drive(fk, phase: int, total: dict, kind, card, tag, devices,
     keys, scale note and selection must equal the frozen ones, each of
     ``kernels`` must have launched and none of ``absent``. The repair
     passes of the run (``solver/repair.plan_repair`` and
-    ``plan_repair_chunked`` calls) are counted. Returns (row, launches,
-    wall seconds, repair passes)."""
+    ``plan_repair_chunked`` calls, and B5's launches) are counted.
+    Returns (row, launches, wall seconds, repair passes)."""
     from k8s_spot_rescheduler_tpu_torch import testing
     from k8s_spot_rescheduler_tpu_torch.solver import memory, repair
 
@@ -2516,7 +2658,7 @@ def guard_drive(fk, phase: int, total: dict, kind, card, tag, devices,
           f"JAX package's {case['selection'][:3]}")
     check(not any(launches[k] for k in absent),
           f"[{phase}] guard {tag}: {absent} launched: {launches}")
-    return row, launches, wall, passes[0]
+    return row, launches, wall, passes[0] + launches["B5"]
 
 
 def guard_line(row, launches, wall, kind, card) -> str:
@@ -2563,9 +2705,11 @@ def mesh_guard_phase(fk, total: dict, kind, card, devices) -> None:
     over ``devices``, each held against the JAX package's frozen row."""
     for tag, kernels in (("cand", ("B1", "B2")), ("cand-carry", ("B3", "B4")),
                          ("2d", ())):
+        # the 2-D rung runs no greedy kernel; its union may repair with B5
+        absent = tuple(k for k in fk.LAUNCHES if k != "B5")
         row, launches, wall, _ = guard_drive(
             fk, 13, total, kind, card, tag, devices, kernels=kernels,
-            absent=tuple(fk.LAUNCHES) if tag == "2d" else ())
+            absent=absent if tag == "2d" else ())
         log(f"[13] bench {row['metric']} past rung {tag}'s forced budget "
             f"over {len(devices)} x cuda:0: "
             + guard_line(row, launches, wall, kind, card))
@@ -2583,14 +2727,15 @@ def bench_phase(np, torch, fk, kind, card, here):
     frozen ``config3_seed0.npz``/``config4_seed0.npz`` answers. One
     config-3 run goes with ``--trace-dir``: the device's busy share of
     its timed window comes from the Chrome trace. Each row's JSON is
-    printed on its own line. Returns B1/B2's launches over the phase."""
+    printed on its own line. Returns B1, B2 and B5's launches over the
+    phase."""
     from k8s_spot_rescheduler_tpu_torch import testing
     from k8s_spot_rescheduler_tpu_torch.bench import __main__ as bench
     from k8s_spot_rescheduler_tpu_torch.models.tensors import load_npz
 
     frozen = testing.load_bench()
     data = os.path.join(here, "k8s_spot_rescheduler_tpu_torch", "data")
-    total = {"B1": 0, "B2": 0}
+    total = {"B1": 0, "B2": 0, "B5": 0}
 
     drive = functools.partial(bench_drive, fk, 10, total, kind, card)
 
@@ -2748,8 +2893,8 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
     and every count equal to the JAX package's frozen rows
     (``data/bench_seed0.json``): ``--replay-device-only`` on the frozen
     harvested tick (a copy of ``data/replay_harvest_seed0.npz`` through
-    ``--harvest-cache``: its selection and feasible lanes; B1 and B2 must
-    launch), ``--carry-wall`` on config 3 at 4 chunks and at the ladder's
+    ``--harvest-cache``: its selection and feasible lanes; B1, B2 and
+    B5 must launch), ``--carry-wall`` on config 3 at 4 chunks and at the ladder's
     count (feasible and valid lanes, chunk count, plane bytes, bucket
     key; B3 and B4 must launch), ``--smoke`` (the first full pack's
     bytes, the steady tick's delta lanes and staged chunks; every delta
@@ -2760,14 +2905,14 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
     B4 launched on each pack), ``--chaos`` and ``--watch-soak`` at 300
     ticks (every stat, no violation; the chaos soak's two scripted
     planner crashes are its only planner fallbacks). Each row's JSON on
-    its own line. Returns B1-B4's launches over the phase."""
+    its own line. Returns B1-B5's launches over the phase."""
     import shutil
 
     from k8s_spot_rescheduler_tpu_torch import testing
     from k8s_spot_rescheduler_tpu_torch.bench import __main__ as bench
 
     frozen = testing.load_bench()
-    total = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    total = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
 
     drive = functools.partial(bench_drive, fk, 11, total, kind, card)
 
@@ -2779,7 +2924,7 @@ def bench_modes_phase(np, torch, fk, kind, card, here):
     shutil.copyfile(testing.HARVEST_PATH, cache)
     _, row, wall, launches = drive("--replay-device-only",
                                    "--replay-device-only", "--harvest-cache",
-                                   cache)
+                                   cache, kernels=("B1", "B2", "B5"))
     for key in ("selection", "feasible", "unproven", "bf_only",
                 "tick_shape"):
         check(row[key] == want[key],
@@ -3168,6 +3313,14 @@ def mesh_phase(np, torch, fk, kind, card, here, fleet):
         "cand-carry": {"B3": n, "B4": n}, "2d": {},
     }
 
+    def launches_ok(launches, tier) -> bool:
+        """The tier's greedy launches, and B5 only where its union's
+        repair is unchunked (cand and 2d: at most one a lane block)."""
+        used = {k: v for k, v in launches.items() if v and k != "B5"}
+        b5 = launches.get("B5", 0)
+        return used == want_launches[tier] and (
+            b5 <= n if tier in ("cand", "2d") else b5 == 0)
+
     def drive(fn):
         """fn() with the launch counts set to 0 just before, read just
         after; returns (result, launches)."""
@@ -3196,7 +3349,7 @@ def mesh_phase(np, torch, fk, kind, card, here, fleet):
               f"[13] {tag}: dispatch {planner.last_dispatch} != the JAX "
               f"package's ({label}, {dispatch})")
         used = {k: v for k, v in launches.items() if v}
-        check(used == want_launches[tier],
+        check(launches_ok(launches, tier),
               f"[13] {tag}: launches {used}, want {want_launches[tier]}")
         reps = 3 if tier == "2d" else 10
         ms = time_ms(torch, lambda: planner.plan_packed(host), reps=reps,
@@ -3238,8 +3391,7 @@ def mesh_phase(np, torch, fk, kind, card, here, fleet):
                   and np.array_equal(res.assignment.cpu().numpy(),
                                      ans[f"{key}_assignment"]),
                   f"[13] {pack} {name}: lanes != the JAX package's")
-            check({k: v for k, v in launches.items() if v}
-                  == want_launches[tier],
+            check(launches_ok(launches, tier),
                   f"[13] {pack} {name}: launches {launches}")
             log(f"[13] {pack} (C={host.slot_req.shape[0]} "
                 f"K={host.slot_req.shape[1]} S={host.spot_free.shape[0]}), "
@@ -3403,12 +3555,14 @@ def main() -> int:
     lib_paths = fk.build()
     lib = fk.library()
     stream_lib = fk.library("stream_bf")
+    repair_lib = fk.library("repair")
     build_s = time.perf_counter() - t0
     log(f"[1] kernel build {build_s:.2f} s (one nvcc per source, in "
         f"parallel) -> "
         f"{', '.join(os.path.relpath(p, here) for p in lib_paths.values())}; "
         f"max dynamic smem B1/B2 {lib.ffd_max_dynamic_smem(0)} B, "
-        f"B4 {stream_lib.stream_bf_max_dynamic_smem(0)} B")
+        f"B4 {stream_lib.stream_bf_max_dynamic_smem(0)} B, "
+        f"B5 {repair_lib.repair_max_dynamic_smem(0)} B")
     for part in re.split(r"(?=^\[\w+\] )", fk.BUILD_LOG, flags=re.M):
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", part)]
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
@@ -3616,7 +3770,11 @@ def main() -> int:
 
     phase_done("3 (the planning tick)")
     log(contended_phase(np, torch, fk, hostc, ansc, kind, card))
-    phase_done("4 (contended)")
+    repair_lines, timings["B5"] = repair_phase(np, torch, fk, hostc, kind,
+                                               card)
+    for line in repair_lines:
+        log(line)
+    phase_done("4 (contended, B5)")
     stream_launches = stream_phase(
         np, torch, fk, timings, kind, card,
         (("config 3", host3, ans3), ("config 4", host4, ans4),
@@ -3664,6 +3822,10 @@ def main() -> int:
          + fleet_launches["B4"] + mesh_launches["B4"],
          "streamed union, the bench's carry walls and parity smoke, and "
          "the carry tiers"),
+        ("B5", mirror["B5"] + bench_launches["B5"] + modes_launches["B5"]
+         + fleet_launches["B5"] + mesh_launches["B5"],
+         "repair wherever a union's gate fires on the controller tick on "
+         "the mirror, the bench, and the cand and 2-D tiers"),
     ):
         row = dict(timings[name])
         row.pop("what")

@@ -246,6 +246,12 @@ device_syncs = _counter(
     "fetches), step-validate (an executed schedule step's re-proof).",
     ["site"],
 )
+repair_lanes = _counter(
+    "repair_lanes_total",
+    "Candidate lanes handed to repair: valid lanes the greedy passes of a "
+    "union solve left unproven, summed over the solves whose repair gate "
+    "fired (kernel B5 on the card, the plain version elsewhere).",
+)
 schedule_invalidated = _counter(
     "schedule_invalidated",
     "Drain-schedule tails invalidated before execution by churn or a "
@@ -525,6 +531,10 @@ def update_plan_schedule_cut() -> None:
 
 def update_device_sync(site: str) -> None:
     device_syncs.labels(site).inc()
+
+
+def update_repair_lanes(n: int) -> None:
+    repair_lanes.inc(n)
 
 
 def update_schedule_invalidated() -> None:

@@ -1,5 +1,6 @@
 // The lane solve of kernels B1-B4 for Hopper (sm_90a), shared by
-// ffd.cu (B1, B2, B3) and stream_bf.cu (B4).
+// ffd.cu (B1, B2, B3) and stream_bf.cu (B4); repair.cu (B5) runs its
+// best-fit as repair's partial pass.
 //
 // Every candidate lane is an independent fork of the spot pool: its K
 // pod slots are placed in order, each on the first fitting spot

@@ -23,6 +23,14 @@
   holding the carry in the layout's dtypes; replaces
   ``pallas_ffd.py:191`` ``_stream_kernel`` (entry
   ``plan_stream_bf_pallas``), the carry-streamed union's best-fit pass.
+- **B5** ``plan_repair_kernel(packed, unproven, rounds, chain)``: repair's
+  partial best-fit pass and its ``rounds`` eject-and-reinsert rounds
+  (``solver/repair.plan_repair`` before its validation) in one launch,
+  CUDA C++ (``csrc/repair.cu``) on B2's design, on the lanes
+  ``unproven`` marks, then the plain from-scratch validation; replaces
+  no Pallas kernel (the JAX package leaves repair to XLA). Its plain
+  version is ``plan_repair_plain``: best-fit's greedy pass
+  (``solver/ffd.greedy_pass``) then ``solver/repair.repair_from``.
 - **B1t**/**B2t** ``plan_ffd_tenants_kernel(stacked, best_fit)``: B1/B2
   over T problems of one shape stacked along a leading tenant axis, in
   one launch of the same kernel over a (lane block, tenant) grid: the
@@ -31,17 +39,19 @@
   (``parallel/tenant_batch.py:60``), whose greedy passes are the XLA
   scan or ``_kernel``; its plain version is ``plan_ffd`` per tenant.
 
-B1-B4 share their lane solve (``csrc/greedy.cuh``); ``launch_geometry``
-picks every kernel's launch shape. A lane's state lives in shared
-memory, or, where one lane alone passes a block's shared memory, in a
-device-memory workspace the wrapper allocates for the launch, so the
-kernels answer at every shape, as the JAX package does.
+B1-B5 share their lane solve (``csrc/greedy.cuh``); ``launch_geometry``
+picks B1-B4's launch shape and ``repair_geometry`` B5's. A lane's state
+lives in shared memory, or, where one lane alone passes a block's
+shared memory, in a device-memory workspace the wrapper allocates for
+the launch, so the kernels answer at every shape, as the JAX package
+does.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
-tensor it runs the plain PyTorch version (``solver/ffd``), and only
-then. ``LAUNCHES`` counts kernel launches per wrapper (one per launch,
-nowhere else), so a run can show its main path went through the
-kernels; a stacked launch counts once, as B1t or B2t.
+tensor it runs the plain PyTorch version (``solver/ffd``,
+``solver/repair``), and only then. ``LAUNCHES`` counts kernel
+launches per wrapper (one per launch, nowhere else), so a run can show
+its main path went through the kernels; a stacked launch counts once,
+as B1t or B2t.
 
 Build: ``nvcc`` compiles each source in ``SOURCES`` for ``sm_90a`` into
 a shared library with a plain C interface under ``build/torch_kernels/``
@@ -49,10 +59,11 @@ at the repo root, at first use, keyed by the hash of that source, the
 ``HEADERS`` it may include and the flags; the sources build in
 parallel, one ``nvcc`` each, and ``ctypes`` loads them. Tensor pointers and PyTorch's current stream are
 passed as integers; each launch function returns the launch's
-``cudaError_t``. ``LAUNCH_ARGS`` and ``STREAM_LAUNCH_ARGS`` list
-``ffd_launch``'s and ``stream_bf_launch``'s parameters in their C order
-and build both the ``argtypes`` and each call; a test holds them
-against the signatures in the sources.
+``cudaError_t``. ``LAUNCH_ARGS``, ``STREAM_LAUNCH_ARGS`` and
+``REPAIR_LAUNCH_ARGS`` list ``ffd_launch``'s, ``stream_bf_launch``'s and
+``repair_launch``'s parameters in their C order and build both the
+``argtypes`` and each call; a test holds them against the signatures in
+the sources.
 """
 
 from __future__ import annotations
@@ -71,17 +82,26 @@ from k8s_spot_rescheduler_tpu_torch.models.tensors import shapes, tenant_slice
 from k8s_spot_rescheduler_tpu_torch.solver.carry import NARROW_LAYOUT
 from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
     ffd_raw,
+    greedy_pass,
     plan_ffd,
     plan_ffd_streamed,
 )
+from k8s_spot_rescheduler_tpu_torch.solver.repair import (
+    plan_repair,
+    repair_from,
+    validated,
+)
 from k8s_spot_rescheduler_tpu_torch.solver.result import SolveResult
+from k8s_spot_rescheduler_tpu_torch.utils import tracing
 
-LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B1t": 0, "B2t": 0}
+LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B1t": 0, "B2t": 0,
+            "B5": 0}
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = {  # library name -> its one source
     "ffd": os.path.join(CSRC, "ffd.cu"),
     "stream_bf": os.path.join(CSRC, "stream_bf.cu"),
+    "repair": os.path.join(CSRC, "repair.cu"),
 }
 HEADERS = (os.path.join(CSRC, "greedy.cuh"),)  # included by every source
 REPO_ROOT = os.path.dirname(
@@ -141,6 +161,20 @@ STREAM_LAUNCH_ARGS = (
         "C", "K", "R", "W", "A", "S", "used_code", "count_code", "aff_code",
         "lanes_per_block", "warps_per_lane", "statics_in_smem", "smem_bytes",
         "lane_ws_words",
+    )),
+    ("stream", "stream"),
+)
+
+# repair_launch's parameters in C order, as LAUNCH_ARGS: B1-B4's inputs
+# with ``unproven`` (the lanes to repair) in place of ``cand_valid``
+REPAIR_LAUNCH_ARGS = (
+    *((name, dtype) if name != "cand_valid" else ("unproven", dtype)
+      for name, dtype, _ in _FIELDS),
+    ("assign", torch.int32),
+    ("lane_ws", torch.int32),
+    *((dim, "int") for dim in (
+        "C", "K", "R", "W", "A", "S", "rounds", "chain", "lanes_per_block",
+        "warps_per_lane", "statics_in_smem", "smem_bytes", "lane_ws_words",
     )),
     ("stream", "stream"),
 )
@@ -228,24 +262,78 @@ def launch_geometry(
     (``lanes_in_smem`` False): shared memory then holds the statics
     where they fit, and only threads and the spread bound the lanes a
     block."""
-    P = 1
-    if best_fit:
-        P = next(p for p in WARPS_PER_LANE if p <= max(1, -(-S // 32)))
+    P = _best_fit_warps(S) if best_fit else 1
     one = fixed_geometry(K, S, R, W, A, 1, P, True, layout)
-    spread = min(C, max(-(-C // n_sm), STAGING_WARPS // P))
     if one.lane_bytes > smem_limit:
-        L = min(32 // P, spread)
-        if P > 1:
-            L = min(L, MAX_NAMED_LANES)
-        return fixed_geometry(K, S, R, W, A, max(1, L), P,
+        return fixed_geometry(K, S, R, W, A, _lanes_a_block(C, P, n_sm), P,
                               one.statics_bytes <= smem_limit, layout,
                               lanes_in_smem=False)
     in_smem = one.smem_bytes <= smem_limit
     base = one.statics_bytes if in_smem else 0
-    L = min((smem_limit - base) // one.lane_bytes, 32 // P, spread)
+    L = _lanes_a_block(C, P, n_sm, (smem_limit - base) // one.lane_bytes)
+    return fixed_geometry(K, S, R, W, A, L, P, in_smem, layout)
+
+
+def _best_fit_warps(S: int) -> int:
+    """Warps a best-fit lane takes: the most of 8, 4, 2, 1 that has a
+    window of 32 spots for each."""
+    return next(p for p in WARPS_PER_LANE if p <= max(1, -(-S // 32)))
+
+
+def _lanes_a_block(C: int, P: int, n_sm: int, fit: int = 32) -> int:
+    """Lanes of P warps a block: at most ``fit`` (what shared memory
+    holds), 1,024 threads, 15 when a lane has several warps, and
+    ceil(C / n_sm), unless that leaves fewer than ``STAGING_WARPS``
+    warps; at least one."""
+    spread = min(C, max(-(-C // n_sm), STAGING_WARPS // P))
+    L = min(fit, 32 // P, spread)
     if P > 1:
         L = min(L, MAX_NAMED_LANES)
-    return fixed_geometry(K, S, R, W, A, max(1, L), P, in_smem, layout)
+    return max(1, L)
+
+
+@functools.lru_cache(maxsize=256)
+def repair_geometry(
+    C: int, K: int, S: int, R: int, W: int, A: int, rounds: int,
+    smem_limit: int, n_sm: int = H100_SMS,
+) -> FfdGeometry:
+    """B5's launch shape over C lanes of K slots and S spots with
+    ``rounds`` rounds, as B2's (``launch_geometry``): best-fit's warps a
+    lane, the statics in shared memory when they fit beside one lane,
+    lanes a block as shared memory, threads and the spread allow. Where
+    one lane alone passes ``smem_limit``, the lanes live in the
+    device-memory workspace (``lanes_in_smem`` False) and shared memory
+    holds the statics where they fit."""
+    P = _best_fit_warps(S)
+    one = fixed_repair_geometry(K, S, R, W, A, rounds, 1, P, True)
+    if one.lane_bytes > smem_limit:
+        return fixed_repair_geometry(
+            K, S, R, W, A, rounds, _lanes_a_block(C, P, n_sm), P,
+            one.statics_bytes <= smem_limit, lanes_in_smem=False)
+    in_smem = one.smem_bytes <= smem_limit
+    base = one.statics_bytes if in_smem else 0
+    L = _lanes_a_block(C, P, n_sm, (smem_limit - base) // one.lane_bytes)
+    return fixed_repair_geometry(K, S, R, W, A, rounds, L, P, in_smem)
+
+
+def fixed_repair_geometry(K: int, S: int, R: int, W: int, A: int,
+                          rounds: int, lanes: int, warps: int,
+                          statics_in_smem: bool, *,
+                          lanes_in_smem: bool = True) -> FfdGeometry:
+    """B5's geometry of ``lanes`` lanes of ``warps`` warps a block, the
+    statics in shared memory or not and the lanes in shared memory or in
+    the device-memory workspace, its bytes counted as ``repair_launch``
+    counts them: a lane is B2's over K + ``rounds`` overlay entries (its
+    slot rows padded to as many), then the assignment [K] and each
+    slot's entry [K] (``csrc/repair.cu`` ``repair_lane_words``)."""
+    E = K + rounds
+    lane_bytes = 4 * (E * (R + W + A + 2) + overlay_words(E, R, A)
+                      + -(-S // 32) + 4 * warps + 2 * K)
+    statics_bytes = 4 * S * (R + 1 + W + A)
+    base = statics_bytes if statics_in_smem else 0
+    lanes_smem = lanes * lane_bytes if lanes_in_smem else 0
+    return FfdGeometry(lanes, warps, statics_in_smem, base + lanes_smem,
+                       statics_bytes, lane_bytes, lanes_in_smem)
 
 
 def fixed_geometry(K: int, S: int, R: int, W: int, A: int, lanes: int,
@@ -362,7 +450,8 @@ def _bind(name: str, lib) -> None:
     """Set the argument and result types of library ``name``'s C
     functions, each prefixed with the library's name."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    args = {"ffd": LAUNCH_ARGS, "stream_bf": STREAM_LAUNCH_ARGS}[name]
+    args = {"ffd": LAUNCH_ARGS, "stream_bf": STREAM_LAUNCH_ARGS,
+            "repair": REPAIR_LAUNCH_ARGS}[name]
     launch = getattr(lib, f"{name}_launch")
     launch.argtypes = [i32 if kind == "int" else ptr for _, kind in args]
     launch.restype = i32
@@ -370,7 +459,7 @@ def _bind(name: str, lib) -> None:
     smem.argtypes = [i32]
     smem.restype = i32
     blocks = getattr(lib, f"{name}_blocks")
-    blocks.argtypes = [i32] * (11 if name == "ffd" else 9)
+    blocks.argtypes = [i32] * {"ffd": 11, "stream_bf": 9, "repair": 9}[name]
     blocks.restype = i32
     error = getattr(lib, f"{name}_error_string")
     error.argtypes = [i32]
@@ -479,7 +568,8 @@ def grid_blocks(packed, geometry: FfdGeometry, best_fit: bool,
 
 def _blocks(name: str, C: int, R: int, W: int, A: int, best_fit: bool,
             geometry: FfdGeometry, tenants: int = 1) -> int:
-    """``grid_blocks`` on the current device."""
+    """``grid_blocks`` on the current device (B5's, for ``name``
+    "repair")."""
     lib = library(name)
     shape = (geometry.lanes_per_block, geometry.warps_per_lane,
              int(geometry.statics_in_smem), geometry.smem_bytes,
@@ -487,10 +577,28 @@ def _blocks(name: str, C: int, R: int, W: int, A: int, best_fit: bool,
     if name == "ffd":
         blocks = lib.ffd_blocks(C, R, W, A, int(best_fit), *shape, tenants)
     else:
-        blocks = lib.stream_bf_blocks(C, R, W, A, *shape)
+        blocks = getattr(lib, f"{name}_blocks")(C, R, W, A, *shape)
     if blocks < 0:
         _raise_on(lib, name, -blocks)
     return blocks
+
+
+def _lane_workspace(name: str, C: int, R: int, W: int, A: int,
+                    best_fit: bool, geometry: FfdGeometry, tenants: int,
+                    dev) -> tuple:
+    """(tensor or None, pointer, words) of the device-memory lane
+    workspace a launch of library ``name`` in ``geometry`` takes on the
+    current device: one lane slot for each lane of each block of each
+    tenant's grid, none where the lanes sit in shared memory."""
+    if geometry.lanes_in_smem:
+        return None, 0, 0
+    blocks = _blocks(name, C, R, W, A, best_fit, geometry, tenants)
+    words = blocks * tenants * geometry.lanes_per_block * (
+        geometry.lane_bytes // 4)
+    if words >= 2**31:
+        raise ValueError(f"a lane workspace of {words} words")
+    ws = torch.empty((words,), dtype=torch.int32, device=dev)
+    return ws, ws.data_ptr(), words
 
 
 def _stream_codes(layout) -> tuple:
@@ -529,18 +637,8 @@ def _launch(name: str, packed, geometry: FfdGeometry, *,
     chosen = torch.empty(lead + (C, K), dtype=torch.int32, device=dev)
     spec = LAUNCH_ARGS if name == "ffd" else STREAM_LAUNCH_ARGS
     with torch.cuda.device(index):
-        ws_ptr, ws_words = 0, 0  # lanes in shared memory: no workspace
-        if not geometry.lanes_in_smem:
-            # one lane slot for each lane of each block of each tenant's
-            # grid
-            blocks = _blocks(name, C, R, W, A, dims.get("best_fit", 1),
-                             geometry, T)
-            lanes = blocks * T * geometry.lanes_per_block
-            ws_words = lanes * geometry.lane_bytes // 4
-            if ws_words >= 2**31:
-                raise ValueError(f"a lane workspace of {ws_words} words")
-            ws = torch.empty((ws_words,), dtype=torch.int32, device=dev)
-            ws_ptr = ws.data_ptr()
+        _ws, ws_ptr, ws_words = _lane_workspace(
+            name, C, R, W, A, dims.get("best_fit", 1), geometry, T, dev)
         args = {n: getattr(packed, n).data_ptr() for n, _, _ in _FIELDS}
         args.update(
             feasible=feasible.data_ptr(),
@@ -738,3 +836,84 @@ def plan_stream_bf_kernel(
     LAUNCHES["B4"] += 1
     assignment = torch.where(feasible[:, None], chosen, -1)
     return SolveResult(feasible=feasible, assignment=assignment)
+
+
+def card_repair_geometry(packed, rounds: int) -> FfdGeometry:
+    """The geometry B5 takes for ``packed`` and ``rounds`` on its card."""
+    C, K, S, R, W, A = shapes(packed)
+    index = _device_index(packed.slot_req.device)
+    return repair_geometry(C, K, S, R, W, A, rounds,
+                           _smem_limit("repair", index),
+                           n_sm=_sm_count(index))
+
+
+def launch_repair_raw(packed, unproven, rounds: int, chain: bool = True,
+                      geometry: FfdGeometry | None = None) -> torch.Tensor:
+    """One B5 launch, uncounted: int32 [C, K], the repaired (not yet
+    validated) assignment of each lane ``unproven`` (bool [C]) marks,
+    -1 rows elsewhere. Launches in ``geometry``, by default
+    ``card_repair_geometry``; the kernel allocates nothing (the wrapper
+    allocates the lane workspace, where the geometry takes one)."""
+    _check(packed)
+    C, K, S, R, W, A = shapes(packed)
+    dev = packed.slot_req.device
+    if (unproven.device != dev or unproven.dtype != torch.bool
+            or tuple(unproven.shape) != (C,) or not unproven.is_contiguous()):
+        raise ValueError(
+            f"unproven: want contiguous torch.bool ({C},) on {dev}, got "
+            f"{unproven.dtype} {tuple(unproven.shape)} on {unproven.device}"
+        )
+    if rounds < 0 or K < 1 or S < 1:
+        raise ValueError(f"B5 takes rounds >= 0, K >= 1, S >= 1, not "
+                         f"{rounds}, {K}, {S}")
+    if geometry is None:
+        geometry = card_repair_geometry(packed, rounds)
+    lib = library("repair")
+    index = _device_index(dev)
+    assign = torch.empty((C, K), dtype=torch.int32, device=dev)
+    with torch.cuda.device(index):
+        _ws, ws_ptr, ws_words = _lane_workspace(
+            "repair", C, R, W, A, True, geometry, 1, dev)
+        args = {n: getattr(packed, n).data_ptr() for n, _, _ in _FIELDS}
+        args.update(
+            unproven=unproven.data_ptr(),
+            assign=assign.data_ptr(),
+            lane_ws=ws_ptr,
+            lane_ws_words=ws_words,
+            C=C, K=K, R=R, W=W, A=A, S=S,
+            rounds=int(rounds), chain=int(bool(chain)),
+            lanes_per_block=geometry.lanes_per_block,
+            warps_per_lane=geometry.warps_per_lane,
+            statics_in_smem=int(geometry.statics_in_smem),
+            smem_bytes=geometry.smem_bytes,
+            stream=torch.cuda.current_stream(index).cuda_stream,
+        )
+        err = lib.repair_launch(*(args[n] for n, _ in REPAIR_LAUNCH_ARGS))
+    _raise_on(lib, "repair", err)
+    return assign
+
+
+def plan_repair_plain(packed, unproven, rounds: int,
+                      chain: bool = True) -> torch.Tensor:
+    """B5's plain version, the tests' reference for ``launch_repair_raw``:
+    ``solver/repair.repair_from`` after the partial pass (best-fit's
+    greedy pass) on every lane, -1 rows where ``unproven`` is False."""
+    assign = repair_from(packed, greedy_pass(packed, True), rounds, chain)
+    return torch.where(unproven[:, None], assign, -1).to(torch.int32)
+
+
+def plan_repair_kernel(packed, unproven, rounds: int,
+                       chain: bool = True) -> SolveResult:
+    """The union's unchunked repair: on a CUDA pack, B5 over the lanes
+    ``unproven`` marks, one launch, then the plain from-scratch
+    validation (``solver/repair.validated``); the rows of every other
+    lane report infeasible, which the union never reads (it keeps
+    greedy's answer there). CPU tensors take the plain
+    ``solver/repair.plan_repair``."""
+    if not packed.slot_req.is_cuda:
+        return plan_repair(packed, rounds=rounds, chain=chain)
+    with tracing.span("repair.kernel"):
+        assign = launch_repair_raw(packed, unproven, rounds, chain)
+        LAUNCHES["B5"] += 1
+    with tracing.span("repair.validate"):
+        return validated(packed, assign)

@@ -99,13 +99,13 @@ def _tenant_stages(rounds: int, best_fit_fallback: bool,
     same two stages, tenant by tenant."""
     from k8s_spot_rescheduler_tpu_torch.ops.ffd_kernels import (
         plan_ffd_tenants_kernel,
+        plan_repair_kernel,
     )
     from k8s_spot_rescheduler_tpu_torch.solver.fallback import (
         _prefer,
         stages,
         union_program,
     )
-    from k8s_spot_rescheduler_tpu_torch.solver.repair import plan_repair
 
     if carry_chunks and carry_chunks >= 1:
         one_greedy, one_finish = stages(union_program(
@@ -144,9 +144,11 @@ def _tenant_stages(rounds: int, best_fit_fallback: bool,
         feasible = union.feasible.clone()
         assignment = union.assignment.clone()
         for t in tenants:
+            one = tenant_slice(stacked, t)
+            unproven = (one.cand_valid & ~union.feasible[t]).contiguous()
             merged = _prefer(
                 SolveResult(union.feasible[t], union.assignment[t]),
-                plan_repair(tenant_slice(stacked, t), rounds=rounds),
+                plan_repair_kernel(one, unproven, rounds),
             )
             feasible[t] = merged.feasible
             assignment[t] = merged.assignment
@@ -162,7 +164,8 @@ def tenant_union(stacked, *, rounds: int = 0,
     [T, C], assignment [T, C, K]. First-fit and best-fit are one B1t and
     one B2t launch over the stack (their plain versions on CPU tensors);
     repair runs per tenant, only where greedy left a valid lane
-    unproven."""
+    unproven: one B5 launch over its unproven lanes on the card
+    (``ops/ffd_kernels.plan_repair_kernel``)."""
     greedy, finish = _tenant_stages(rounds, best_fit_fallback)
     return finish(stacked, greedy(stacked))
 

@@ -14,9 +14,16 @@ either way, since a skipped pass would only be consumed on lanes with
 
 - best-fit runs unconditionally: it is one kernel launch (B2, or B4 on
   the streamed union), cheaper than the host sync a gate would cost;
-- repair is gated by ONE host sync per union solve (``bool(need)``):
-  it is the expensive pass (plain PyTorch), and on a tick where the
-  greedy passes prove every valid lane it is skipped.
+- repair is gated by ONE host sync per union solve: the count of valid
+  lanes the greedy passes left unproven (``repair_lanes_total`` adds
+  it up). Repair is the expensive pass, and on a tick where the greedy
+  passes prove every valid lane it is skipped. On a CUDA pack
+  ``with_repair``'s repair is one launch of kernel B5 over the
+  unproven lanes, then the plain from-scratch validation; on a CPU
+  pack it is the plain ``plan_repair``
+  (``ops/ffd_kernels.plan_repair_kernel`` picks by device). Both give
+  the same union: the union keeps greedy's answer on a proven lane and
+  never reads repair's there.
 
 So ``with_best_fit_fallback`` takes no sync and ``with_repair`` and
 ``with_repair_streamed`` one. Their solves keep the two stages as
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from k8s_spot_rescheduler_tpu_torch.metrics import registry as metrics
 from k8s_spot_rescheduler_tpu_torch.solver.carry import NARROW_LAYOUT
 from k8s_spot_rescheduler_tpu_torch.solver.result import SolveResult
 from k8s_spot_rescheduler_tpu_torch.utils import tracing
@@ -47,12 +55,22 @@ def _prefer(first: SolveResult, then: SolveResult) -> SolveResult:
     )
 
 
-def _needs_repair(packed, greedy: SolveResult) -> bool:
-    """The one host sync of a union solve: did the greedy passes leave a
-    valid lane unproven?"""
-    return device_sync(
-        "repair-gate", bool, (packed.cand_valid & ~greedy.feasible).any()
-    )
+def _unproven(packed, greedy: SolveResult) -> torch.Tensor:
+    """bool [C]: the valid lanes the greedy passes left unproven."""
+    return packed.cand_valid & ~greedy.feasible
+
+
+def _needs_repair(packed, greedy: SolveResult) -> int:
+    """The one host sync of a union solve: how many valid lanes the
+    greedy passes left unproven (0: repair is skipped)."""
+    return device_sync("repair-gate", int, _unproven(packed, greedy).sum())
+
+
+def _repairing(lanes: int):
+    """The ``union.repair`` span of a repair handed ``lanes`` lanes,
+    which ``repair_lanes_total`` counts."""
+    metrics.update_repair_lanes(lanes)
+    return tracing.span("union.repair", lanes=lanes)
 
 
 def _staged(greedy, finish):
@@ -92,26 +110,32 @@ def with_repair(solve_fn, rounds: int, spot_chunks: int = 1):
     """First-fit ∪ best-fit ∪ ``rounds`` rounds of repair
     (``solver/repair.plan_repair``, or ``plan_repair_chunked`` over
     ``spot_chunks`` > 1 spot chunks, same results); repair runs only
-    when the greedy passes left a valid lane unproven."""
+    when the greedy passes left a valid lane unproven. Unchunked, on a
+    CUDA pack, the partial pass and the rounds are one B5 launch over
+    the unproven lanes, validated plain
+    (``ops/ffd_kernels.plan_repair_kernel``)."""
+    from k8s_spot_rescheduler_tpu_torch.ops.ffd_kernels import (
+        plan_repair_kernel,
+    )
     from k8s_spot_rescheduler_tpu_torch.solver.repair import (
-        plan_repair,
         plan_repair_chunked,
     )
 
     greedy = with_best_fit_fallback(solve_fn)
 
-    def repair(packed) -> SolveResult:
+    def repair(packed, unproven) -> SolveResult:
         if spot_chunks > 1:
             return plan_repair_chunked(
                 packed, rounds=rounds, spot_chunks=spot_chunks
             )
-        return plan_repair(packed, rounds=rounds)
+        return plan_repair_kernel(packed, unproven, rounds)
 
     def finish(packed, union: SolveResult) -> SolveResult:
-        if not _needs_repair(packed, union):
+        lanes = _needs_repair(packed, union)
+        if not lanes:
             return union
-        with tracing.span("union.repair"):
-            return _prefer(union, repair(packed))
+        with _repairing(lanes):
+            return _prefer(union, repair(packed, _unproven(packed, union)))
 
     return _staged(greedy, finish)
 
@@ -137,7 +161,7 @@ def with_repair_streamed(
     ``carry_chunks`` spot chunks (``plan_stream_ff_kernel``); on CPU
     tensors those wrappers take their plain versions, the passes below.
     Without it both greedy passes are the plain ``plan_ffd_streamed``.
-    Repair is plain PyTorch either way."""
+    Repair (spot-chunked) is plain PyTorch either way."""
     from k8s_spot_rescheduler_tpu_torch.solver.ffd import plan_ffd_streamed
     from k8s_spot_rescheduler_tpu_torch.solver.repair import (
         plan_repair_chunked,
@@ -178,10 +202,12 @@ def with_repair_streamed(
             return _prefer(ff, best_fit(packed))
 
     def finish(packed, union: SolveResult) -> SolveResult:
-        if (not best_fit_fallback or rounds <= 0
-                or not _needs_repair(packed, union)):
+        if not best_fit_fallback or rounds <= 0:
             return union
-        with tracing.span("union.repair"):
+        lanes = _needs_repair(packed, union)
+        if not lanes:
+            return union
+        with _repairing(lanes):
             return _prefer(
                 union,
                 plan_repair_chunked(

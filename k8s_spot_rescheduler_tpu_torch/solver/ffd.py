@@ -174,12 +174,15 @@ def _scan_step(static: _SpotStatics, best_fit: bool, carry: _Carry, slot):
     return carry._replace(feasible=feasible), chosen
 
 
-def ffd_raw(
+def greedy_pass(
     packed, best_fit: bool = False, layout: CarryLayout = WIDE_LAYOUT
-):
-    """(feasible bool [C], chosen int32 [C, K]): the greedy pass with
-    placements NOT masked by lane feasibility (-1 = slot unplaced), the
-    output the spot-chunk loop of kernel B3 composes."""
+) -> tuple[_Carry, torch.Tensor]:
+    """(carry, chosen int32 [C, K]): the greedy pass over every slot, its
+    placements NOT masked by lane feasibility (-1 = slot unplaced), and
+    the delta carry they leave. A valid pod that fits nowhere fails its
+    lane's ``feasible`` and the later slots still place: in best-fit
+    mode this is repair's partial pass (``solver/repair.repair_from``
+    starts from it)."""
     C, K, R = packed.slot_req.shape
     S = packed.spot_free.shape[0]
     A = packed.spot_aff.shape[1]
@@ -192,6 +195,16 @@ def ffd_raw(
         carry, chosen[:, k] = _scan_step(
             static, best_fit, carry, _slot(packed, k)
         )
+    return carry, chosen
+
+
+def ffd_raw(
+    packed, best_fit: bool = False, layout: CarryLayout = WIDE_LAYOUT
+):
+    """(feasible bool [C], chosen int32 [C, K]): the greedy pass with
+    placements NOT masked by lane feasibility (-1 = slot unplaced), the
+    output the spot-chunk loop of kernel B3 composes."""
+    carry, chosen = greedy_pass(packed, best_fit, layout)
     return carry.feasible & packed.cand_valid, chosen
 
 

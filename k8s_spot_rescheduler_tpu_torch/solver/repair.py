@@ -2,8 +2,10 @@
 
 The port of the JAX package's ``solver/repair.plan_repair``:
 
-1. a partial best-fit pass that leaves gaps instead of failing a lane;
-2. ``rounds`` repair rounds. Each unfinished lane picks its first
+1. a partial best-fit pass that leaves gaps instead of failing a lane
+   (best-fit's greedy pass, ``solver/ffd.greedy_pass``);
+2. ``rounds`` repair rounds (``repair_from``, from the partial pass's
+   carry and assignment). Each unfinished lane picks its first
    unplaced pod p, rotates deterministically through the placed pods q
    whose ejection would let p take their node, and relocates
    ``q -> elsewhere, p -> q's node``; when q cannot re-place directly,
@@ -15,7 +17,9 @@ The port of the JAX package's ``solver/repair.plan_repair``:
 Every election, gate and update copies the reference's arithmetic, so
 the result is bit-identical to ``plan_repair`` and
 ``plan_repair_oracle``. The state is the delta carry (dtypes from a
-``CarryLayout``) widened at the one site ``solver/ffd._widen``.
+``CarryLayout``) widened at the one site ``solver/ffd._widen``. On the
+card the union runs steps 1 and 2 as kernel B5 instead, then
+``validated`` (``ops/ffd_kernels.plan_repair_kernel``).
 
 ``plan_repair_chunked`` is the elect-then-commit restructure over
 ordered spot chunks (the JAX package's ``plan_repair_chunked``): chunk
@@ -39,14 +43,12 @@ from k8s_spot_rescheduler_tpu_torch.solver.carry import (
     CarryLayout,
 )
 from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
-    _Carry,
-    _scan_step,
+    greedy_pass,
     _slot,
     _spot_statics,
     _stream_bf_step,
     _widen,
     _widen_chunk,
-    _zero_carry,
     _zero_chunk_state,
     chunked_spot_statics,
     first_true,
@@ -68,13 +70,6 @@ class _RepairCarry(NamedTuple):
     dcount: torch.Tensor  # [C, S]
     daff: torch.Tensor  # [C, A, S]
     assign: torch.Tensor  # i32 [C, K]
-
-
-def _partial_scan_step(static, carry: _Carry, slot):
-    """``solver/ffd._scan_step`` in best-fit mode, but a pod that fits
-    nowhere leaves a gap instead of failing the lane."""
-    new_carry, chosen = _scan_step(static, True, carry, slot)
-    return new_carry._replace(feasible=carry.feasible), chosen
 
 
 def _take(x, idx):
@@ -299,6 +294,41 @@ def _repair_round(static, chain: bool, state: _RepairCarry, round_idx: int):
     return _RepairCarry(used, dcount, daff, assign)
 
 
+def repair_from(
+    packed,
+    partial,
+    rounds: int = DEFAULT_ROUNDS,
+    chain: bool = True,
+) -> torch.Tensor:
+    """int32 [C, K]: ``rounds`` repair rounds, not yet validated, from
+    ``partial``, the partial pass's (delta carry, assignment)
+    (``solver/ffd.greedy_pass(packed, best_fit=True)``). The plain twin
+    of kernel B5 (``ops/ffd_kernels.plan_repair_kernel``)."""
+    carry, assign0 = partial
+    state = _RepairCarry(
+        used=carry.used, dcount=carry.dcount, daff=carry.daff, assign=assign0
+    )
+    repair_static = (
+        _spot_statics(packed),
+        packed.spot_aff,  # static resident bits, [S, A]
+        packed.slot_req,
+        packed.slot_valid,
+        packed.slot_tol,
+        packed.slot_aff,
+    )
+    for i in range(rounds):
+        state = _repair_round(repair_static, chain, state, i)
+    return state.assign
+
+
+def validated(packed, assign) -> SolveResult:
+    """The from-scratch validation of repair's assignment: lanes it
+    proves keep their row, the others report infeasible and -1."""
+    feasible = validate_assignment(packed, assign)
+    assignment = torch.where(feasible[:, None], assign, -1).to(torch.int32)
+    return SolveResult(feasible=feasible, assignment=assignment)
+
+
 def plan_repair(
     packed,
     rounds: int = DEFAULT_ROUNDS,
@@ -307,44 +337,17 @@ def plan_repair(
 ) -> SolveResult:
     """Partial pack + ``rounds`` repair rounds + from-scratch validation
     over a device PackedCluster (the contract of the JAX
-    ``plan_repair``). ``layout`` narrows the delta carry; pass only what
-    ``solver/carry.carry_layout`` proves the pack fits."""
-    C, K, R = packed.slot_req.shape
-    S = packed.spot_free.shape[0]
-    A = packed.spot_aff.shape[1]
-
+    ``plan_repair``). The partial pass is best-fit's greedy pass
+    (``solver/ffd.greedy_pass``): a valid pod that fits nowhere leaves
+    -1 and the later slots still place. ``layout`` narrows the delta
+    carry; pass only what ``solver/carry.carry_layout`` proves the pack
+    fits."""
     with tracing.span("repair.partial"):
-        static = _spot_statics(packed)
-        carry = _zero_carry(layout, C, R, A, S, packed.cand_valid)
-        assign0 = torch.full(
-            (C, K), -1, dtype=torch.int32, device=packed.slot_req.device
-        )
-        for k in range(K):
-            carry, assign0[:, k] = _partial_scan_step(
-                static, carry, _slot(packed, k)
-            )
-
-    state = _RepairCarry(
-        used=carry.used, dcount=carry.dcount, daff=carry.daff, assign=assign0
-    )
-    repair_static = (
-        static,
-        packed.spot_aff,  # static resident bits, [S, A]
-        packed.slot_req,
-        packed.slot_valid,
-        packed.slot_tol,
-        packed.slot_aff,
-    )
+        partial = greedy_pass(packed, True, layout)
     with tracing.span("repair.rounds"):
-        for i in range(rounds):
-            state = _repair_round(repair_static, chain, state, i)
-
+        assign = repair_from(packed, partial, rounds, chain)
     with tracing.span("repair.validate"):
-        feasible = validate_assignment(packed, state.assign)
-        assignment = torch.where(feasible[:, None], state.assign, -1).to(
-            torch.int32
-        )
-    return SolveResult(feasible=feasible, assignment=assignment)
+        return validated(packed, assign)
 
 
 # --- spot-chunked repair (elect-then-commit) -----------------------------------
@@ -639,8 +642,4 @@ def plan_repair_chunked(
     assign = state[3]
 
     with tracing.span("repair.validate"):
-        feasible = validate_assignment(packed, assign)
-        assignment = torch.where(feasible[:, None], assign, -1).to(
-            torch.int32
-        )
-    return SolveResult(feasible=feasible, assignment=assignment)
+        return validated(packed, assign)

@@ -98,6 +98,25 @@ def random_pack(rng, C: int, K: int, S: int, R: int, W: int = 1, A: int = 2,
     )
 
 
+# (C, K, S, R, req_max, max_pods) of ``repair_pack``: "small" at R = 2
+# (kernel B5's generic instances) over two windows of spots, "fixed" at
+# R, W, A = 4, 1, 2 (its fixed instances) with K past one ballot of 32
+# slots and ten windows. Both are tight enough that the greedy passes
+# leave lanes unproven and repair's direct and chain moves fire.
+REPAIR_SHAPES = {
+    "small": (64, 16, 48, 2, 40, 5),
+    "fixed": (40, 40, 320, 4, 60, 2),
+}
+
+
+def repair_pack(seed: int, shape: str = "small") -> PackedCluster:
+    """A seeded ``random_pack`` of ``REPAIR_SHAPES[shape]``, where repair
+    has work."""
+    C, K, S, R, req_max, max_pods = REPAIR_SHAPES[shape]
+    return random_pack(np.random.default_rng(seed), C, K, S, R,
+                       req_max=req_max, max_pods=max_pods)
+
+
 def _one_spot(rng) -> PackedCluster:
     C, K, S, R = 16, 64, 3, 2
     base = random_pack(rng, C, K, S, R, req_max=8)

@@ -85,9 +85,11 @@ SPAN_NAMES: Dict[str, str] = {
     "pack.fill": "the problem arrays: lanes, slots and the spot pool's state",
     "union.greedy": "one union solve's greedy passes (B1, B2 and their merge)",
     "union.repair": "one union solve's repair, where the greedy passes left "
-                    "a valid lane unproven",
+                    "a valid lane unproven (lanes attr: how many)",
     "repair.partial": "repair's partial best-fit pass over the K slots",
     "repair.rounds": "every round of repair's eject-and-reinsert search",
+    "repair.kernel": "repair's partial pass and rounds as one launch of "
+                     "kernel B5 (on the card)",
     "repair.validate": "repair's from-scratch validation of its lanes",
     "schedule.commit": "one schedule step's commit and its row of the matrix",
     "device.sync": "the host blocked on one device-to-host read (site attr)",

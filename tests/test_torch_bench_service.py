@@ -184,7 +184,8 @@ def test_driver_sched_smoke_row_on_the_cpu(frozen):
     assert row["ok"] and "violations" not in row
     assert row["backend_attestation"]["solve_backend"] == "cpu"
     assert row["backend_attestation"]["remote_planner_fallbacks"] == 0
-    assert set(row["launches"]) == {"B1", "B2", "B3", "B4", "B1t", "B2t"}
+    assert set(row["launches"]) == {"B1", "B2", "B3", "B4", "B1t", "B2t",
+                                    "B5"}
 
 
 # --- fleet-chaos ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Kernels B1-B4 against their plain PyTorch versions.
+"""Kernels B1-B5 against their plain PyTorch versions.
 
 This file imports torch, numpy and the port only, never jax, so it also
 runs on a machine with a card and no jax (skipping the jax-importing
@@ -31,13 +31,19 @@ from k8s_spot_rescheduler_tpu_torch.solver.ffd import (
     plan_ffd,
     plan_ffd_streamed,
 )
+from k8s_spot_rescheduler_tpu_torch.solver.repair import (
+    plan_repair,
+    validated,
+)
 from k8s_spot_rescheduler_tpu_torch.testing import (
     PAST_SMEM_SHAPE,
+    REPAIR_SHAPES,
     STRESS_LAYOUTS,
     past_smem_pack,
     overlay_stress_packs,
     random_bits,
     random_pack,
+    repair_pack,
 )
 
 torch.set_num_threads(1)
@@ -153,8 +159,9 @@ def _c_params(source: str, function: str):
     [
         ("ffd", "ffd_launch", ffd_kernels.LAUNCH_ARGS),
         ("stream_bf", "stream_bf_launch", ffd_kernels.STREAM_LAUNCH_ARGS),
+        ("repair", "repair_launch", ffd_kernels.REPAIR_LAUNCH_ARGS),
     ],
-    ids=["ffd_launch", "stream_bf_launch"],
+    ids=["ffd_launch", "stream_bf_launch", "repair_launch"],
 )
 def test_launch_args_match_the_c_signature(source, function, args):
     """Each ctypes call is built from its LAUNCH_ARGS; no compiler checks
@@ -504,26 +511,31 @@ def test_lane_state_past_shared_memory_on_the_card(cuda_device, best_fit):
     _assert_same(got, plan_ffd(packed, best_fit=best_fit))
 
 
-@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4"])
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5"])
 def test_past_smem_pack_passes_shared_memory(kernel):
     """One lane of ``past_smem_pack`` passes a block's shared memory for
-    each kernel (B3 at 2 chunks, B4 at the pack's own carry layout), so
-    every launch carves its lanes from the workspace."""
+    each kernel (B3 at 2 chunks, B4 at the pack's own carry layout, B5
+    at 8 rounds), so every launch carves its lanes from the workspace."""
     C, K, S, R, W, A = PAST_SMEM_SHAPE
     packed = past_smem_pack(0)
     assert packed.slot_req.shape == (C, K, R)
     assert packed.spot_taints.shape == (S, W)
     layout = carry_layout(packed) if kernel == "B4" else None
-    g = ffd_kernels.launch_geometry(
-        C, K, -(-S // 2) if kernel == "B3" else S, R, W, A,
-        ffd_kernels.H100_SMEM_LIMIT, kernel in ("B2", "B4"), layout=layout,
-    )
+    if kernel == "B5":
+        g = ffd_kernels.repair_geometry(C, K, S, R, W, A, 8,
+                                        ffd_kernels.H100_SMEM_LIMIT)
+    else:
+        g = ffd_kernels.launch_geometry(
+            C, K, -(-S // 2) if kernel == "B3" else S, R, W, A,
+            ffd_kernels.H100_SMEM_LIMIT, kernel in ("B2", "B4"),
+            layout=layout,
+        )
     assert not g.lanes_in_smem and g.lane_bytes > ffd_kernels.H100_SMEM_LIMIT
     assert g.statics_in_smem and g.smem_bytes == g.statics_bytes
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4"])
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4", "B5"])
 def test_lane_workspace_matches_plain_on_the_card(cuda_device, kernel):
     """Past one lane's shared memory (``past_smem_pack``, K=2,200 at
     W=17) each kernel runs with its lanes in the device-memory workspace,
@@ -531,7 +543,13 @@ def test_lane_workspace_matches_plain_on_the_card(cuda_device, kernel):
     host = past_smem_pack(0)
     packed = to_device(host, cuda_device)
     before = ffd_kernels.LAUNCHES[kernel]
-    if kernel in ("B1", "B2"):
+    if kernel == "B5":
+        assert not ffd_kernels.card_repair_geometry(packed, 8).lanes_in_smem
+        unproven = torch.ones_like(packed.cand_valid)
+        got = ffd_kernels.plan_repair_kernel(packed, unproven, 8)
+        want = validated(
+            packed, ffd_kernels.plan_repair_plain(packed, unproven, 8))
+    elif kernel in ("B1", "B2"):
         best_fit = kernel == "B2"
         assert not ffd_kernels.card_geometry(packed, best_fit).lanes_in_smem
         got = ffd_kernels.plan_ffd_kernel(packed, best_fit=best_fit)
@@ -839,3 +857,169 @@ def test_every_tenant_geometry_gives_the_same_answer(cuda_device, best_fit):
                 assert torch.equal(
                     torch.where(feasible[..., None], chosen, -1),
                     want.assignment)
+
+
+# --- B5: repair's partial pass and rounds ----------------------------------------
+
+
+def _unproven(packed):
+    """bool [C]: the valid lanes plain first-fit and best-fit leave
+    unproven (what the union hands B5)."""
+    ff = plan_ffd(packed)
+    bf = plan_ffd(packed, best_fit=True)
+    return packed.cand_valid & ~(ff.feasible | bf.feasible)
+
+
+@pytest.mark.parametrize("chain", [True, False])
+@pytest.mark.parametrize("shape", list(REPAIR_SHAPES))
+def test_repair_wrapper_takes_the_plain_version_on_cpu_tensors(shape, chain):
+    """On CPU tensors the union's repair is the plain ``plan_repair``,
+    and the kernel's plain twin, validated, agrees with it on every lane
+    handed over."""
+    packed = to_device(repair_pack(0, shape), "cpu")
+    unproven = _unproven(packed)
+    assert unproven.any()
+    before = dict(ffd_kernels.LAUNCHES)
+    got = ffd_kernels.plan_repair_kernel(packed, unproven, 8, chain)
+    assert ffd_kernels.LAUNCHES == before
+    want = plan_repair(packed, chain=chain)
+    _assert_same(got, want)
+    twin = ffd_kernels.plan_repair_plain(packed, unproven, 8, chain)
+    assert twin.dtype == torch.int32
+    assert torch.equal(twin[~unproven], torch.full_like(twin[~unproven], -1))
+    twin = validated(packed, twin)
+    assert torch.equal(twin.feasible[unproven], want.feasible[unproven])
+    assert torch.equal(twin.assignment[unproven], want.assignment[unproven])
+
+
+def test_repair_raw_launch_refuses_cpu_tensors():
+    packed = to_device(repair_pack(0), "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ffd_kernels.launch_repair_raw(packed, packed.cand_valid, 8)
+
+
+# (C, K, S, R, W, A, rounds) of the B5 geometry cases: the constrained
+# benchmark cell, config 3, S=9000, and a K whose one lane passes shared
+# memory (its lanes in the device-memory workspace)
+REPAIR_GEOMETRY_SHAPES = {
+    "constrained": (500, 64, 500, 4, 1, 2, 8),
+    "config3": (2560, 32, 2560, 4, 1, 2, 8),
+    "s9000": (300, 32, 9000, 4, 1, 2, 8),
+    "impossible_k": (8, 5000, 2560, 4, 1, 2, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(REPAIR_GEOMETRY_SHAPES), ids=str)
+def test_repair_geometry(case):
+    """B5 takes B2's warps a lane and its lanes-a-block rule, with a
+    lane of K + rounds overlay entries and the assignment and entry
+    rows; where one lane passes shared memory, the lanes go to the
+    device-memory workspace and shared memory holds the statics."""
+    C, K, S, R, W, A, rounds = REPAIR_GEOMETRY_SHAPES[case]
+    g = ffd_kernels.repair_geometry(C, K, S, R, W, A, rounds,
+                                    ffd_kernels.H100_SMEM_LIMIT)
+    E = K + rounds
+    lane = 4 * (E * (R + W + A + 2) + E * (R + 1 + A) + -(-S // 32)
+                + 4 * g.warps_per_lane + 2 * K)
+    b2 = ffd_kernels.launch_geometry(C, K, S, R, W, A,
+                                     ffd_kernels.H100_SMEM_LIMIT, True)
+    assert g.warps_per_lane == b2.warps_per_lane
+    assert g.lane_bytes == lane
+    if case == "impossible_k":
+        assert lane > ffd_kernels.H100_SMEM_LIMIT and not g.lanes_in_smem
+        assert g.statics_in_smem and g.smem_bytes == g.statics_bytes
+        assert g.lanes_per_block == b2.lanes_per_block
+        return
+    assert g.lanes_in_smem
+    assert g.statics_bytes == 4 * S * (R + 1 + W + A)
+    assert g.statics_in_smem == (g.statics_bytes + lane
+                                 <= ffd_kernels.H100_SMEM_LIMIT)
+    assert g.smem_bytes == (g.statics_bytes if g.statics_in_smem else 0) + (
+        g.lanes_per_block * lane)
+    assert g.smem_bytes <= ffd_kernels.H100_SMEM_LIMIT
+    assert g.threads <= 1024
+    assert g.lanes_per_block <= max(-(-C // ffd_kernels.H100_SMS), 1)
+
+
+def _check_repair(packed, unproven, rounds=8, chain=True, geometry=None):
+    """B5's raw rows equal the plain twin's (``plan_repair_plain``); by
+    default also the union's entry, one launch, validated."""
+    want = ffd_kernels.plan_repair_plain(packed, unproven, rounds, chain)
+    got = ffd_kernels.launch_repair_raw(packed, unproven, rounds, chain,
+                                        geometry)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if geometry is None:
+        before = ffd_kernels.LAUNCHES["B5"]
+        res = ffd_kernels.plan_repair_kernel(packed, unproven, rounds, chain)
+        assert ffd_kernels.LAUNCHES["B5"] == before + 1
+        _assert_same(res, validated(packed, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", [True, False])
+@pytest.mark.parametrize("shape", list(REPAIR_SHAPES))
+@pytest.mark.parametrize("seed", range(6))
+def test_repair_kernel_matches_plain_on_the_card(cuda_device, seed, shape,
+                                                 chain):
+    packed = to_device(repair_pack(seed, shape), cuda_device)
+    assert ffd_kernels.card_repair_geometry(packed, 8).lanes_in_smem
+    _check_repair(packed, _unproven(packed), chain=chain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [0, 1, 3, 20])
+def test_repair_kernel_at_other_round_counts(cuda_device, rounds):
+    packed = to_device(repair_pack(7, "fixed"), cuda_device)
+    _check_repair(packed, _unproven(packed), rounds=rounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["all", "none", "invalid"])
+def test_repair_kernel_lane_filter(cuda_device, which):
+    """Every lane handed over (proven, invalid and unproven alike), none
+    (every row -1), and the invalid lanes alone: each handed lane's row
+    is the plain twin's, whatever greedy made of it."""
+    packed = to_device(repair_pack(3), cuda_device)
+    unproven = {
+        "all": torch.ones_like(packed.cand_valid),
+        "none": torch.zeros_like(packed.cand_valid),
+        "invalid": ~packed.cand_valid,
+    }[which]
+    _check_repair(packed, unproven.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_repair_kernel_on_random_packs(cuda_device, seed):
+    """``_host_pack``'s random shapes (R from 1 to 4, S up to 300, K up
+    to 8) with every lane handed over."""
+    packed = to_device(_host_pack(200 + seed), cuda_device)
+    _check_repair(packed, torch.ones_like(packed.cand_valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(REPAIR_SHAPES))
+def test_every_repair_geometry_gives_the_same_answer(cuda_device, shape):
+    packed = to_device(repair_pack(11, shape), cuda_device)
+    unproven = _unproven(packed)
+    C, K, S, R, W, A = ffd_kernels.shapes(packed)
+    for warps in (1, 2, 4, 8):
+        for L in (1, 3):
+            for in_smem in (True, False):
+                for lanes_in_smem in (True, False):
+                    g = ffd_kernels.fixed_repair_geometry(
+                        K, S, R, W, A, 8, L, warps, in_smem,
+                        lanes_in_smem=lanes_in_smem)
+                    _check_repair(packed, unproven, geometry=g)
+
+
+@pytest.mark.cuda
+def test_repair_kernel_statics_in_device_memory(cuda_device):
+    """S=9000 at R=4: the statics pass shared memory beside a lane and
+    are read from device memory."""
+    rng = np.random.default_rng(9)
+    packed = to_device(random_pack(rng, 24, 24, 9000, 4, req_max=400,
+                                   max_pods=2), cuda_device)
+    assert not ffd_kernels.card_repair_geometry(packed, 8).statics_in_smem
+    _check_repair(packed, torch.ones_like(packed.cand_valid))
